@@ -1,0 +1,76 @@
+// Device helpers shared by B4 (packet.cu) and B5-B7 (bvh.cu): the slab test
+// with NaN-propagating min/max, and the IA_* rows of one BVH hit -- the
+// winner's packed attribute row interpolated at its barycentrics, as
+// lupinpathtracer_tpu/kernels/pallas_bvh.py::_attr_kernel (:750-786) and
+// pallas_packet.py::_attr_phase (:784-809) compute them. The plain versions
+// are kernels/bvh.slab and kernels/bvh.interp_rows.
+
+#pragma once
+
+namespace lupin_bvh {
+
+constexpr float F32_MAX = 3.4028235e38f;
+constexpr int TOP_FAN = 8;
+
+// min/max that propagate NaN, as jnp.minimum/maximum and torch do.
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// Slab test (pathtracer.wgsl:2906-2918), in the order of kernels/bvh.slab.
+__device__ __forceinline__ void slab(const float o[3], const float iv[3],
+                                     const float* lo, const float* hi,
+                                     float& t_near, float& t_far) {
+  const float tx1 = (lo[0] - o[0]) * iv[0], tx2 = (hi[0] - o[0]) * iv[0];
+  const float ty1 = (lo[1] - o[1]) * iv[1], ty2 = (hi[1] - o[1]) * iv[1];
+  const float tz1 = (lo[2] - o[2]) * iv[2], tz2 = (hi[2] - o[2]) * iv[2];
+  t_far = nmin(nmin(nmax(tx1, tx2), nmax(ty1, ty2)), nmax(tz1, tz2));
+  t_near = nmax(nmax(nmin(tx1, tx2), nmin(ty1, ty2)), nmin(tz1, tz2));
+}
+
+// Attribute columns (kernels/dense_intersect.py ATTR_*).
+constexpr int A_N0 = 0, A_N1 = 3, A_N2 = 6, A_GN = 9, A_UV0 = 12, A_UV1 = 14,
+              A_UV2 = 16, A_HAS_UV = 18, A_C0 = 19, A_C1 = 23, A_C2 = 27,
+              A_TAN = 31, A_BIT = 34, A_DET_SIGN = 58, A_MAT_ID = 59;
+
+__device__ __forceinline__ float interp(const float* a, int s0, int s1, int s2,
+                                        int c, float hw, float hu, float hv) {
+  return a[s0 + c] * hw + a[s1 + c] * hu + a[s2 + c] * hv;
+}
+
+// Writes awout (16 or 24) rows, row r at out[r * stride]; a == nullptr
+// writes zeros (a miss).
+__device__ __forceinline__ void write_rows(const float* a, float hu, float hv,
+                                           int awout, float* out,
+                                           size_t stride) {
+  if (a == nullptr) {
+    for (int r = 0; r < awout; ++r) out[(size_t)r * stride] = 0.0f;
+    return;
+  }
+  const float hw = 1.0f - hu - hv;
+  for (int c = 0; c < 3; ++c) {
+    out[(size_t)(0 + c) * stride] = interp(a, A_N0, A_N1, A_N2, c, hw, hu, hv);
+    out[(size_t)(3 + c) * stride] = a[A_GN + c];
+    out[(size_t)(9 + c) * stride] = interp(a, A_C0, A_C1, A_C2, c, hw, hu, hv);
+  }
+  out[6 * stride] = interp(a, A_UV0, A_UV1, A_UV2, 0, hw, hu, hv);
+  out[7 * stride] = interp(a, A_UV0, A_UV1, A_UV2, 1, hw, hu, hv);
+  out[8 * stride] = a[A_HAS_UV];
+  out[12 * stride] = interp(a, A_C0, A_C1, A_C2, 3, hw, hu, hv);
+  out[13 * stride] = a[A_DET_SIGN];
+  out[14 * stride] = a[A_MAT_ID];
+  out[15 * stride] = 0.0f;
+  if (awout >= 24) {
+    for (int c = 0; c < 3; ++c) {
+      out[(size_t)(16 + c) * stride] = a[A_TAN + c];
+      out[(size_t)(19 + c) * stride] = a[A_BIT + c];
+    }
+    out[22 * stride] = 0.0f;
+    out[23 * stride] = 0.0f;
+  }
+}
+
+}  // namespace lupin_bvh

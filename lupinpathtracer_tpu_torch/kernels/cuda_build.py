@@ -24,7 +24,7 @@ import time
 from .._paths import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("dense_intersect", "mega")
+SOURCES = ("dense_intersect", "mega", "packet", "bvh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -47,9 +47,14 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header."""
+
     lib = _lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(d) for d in deps)
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -1,32 +1,52 @@
-"""Ray-scene intersection, dense part.
+"""Ray-scene intersection: the dense intersector and the BVH wavefront.
 
-The counterpart of the dense half of lupinpathtracer_tpu/kernels/intersect.py.
-Cramer's-rule ray/triangle intersection factors into dot products: each ray
-becomes the 10-feature row R = [d, o x d, o, 1] and each triangle four
-10-vectors whose dot products with R are the determinant and the t/u/v
-numerators of ray_tri_dst (pathtracer.wgsl:2922-2943). The closest hit over
-all triangles is kernel B1/B2 (kernels/dense_intersect.py).
+The counterpart of lupinpathtracer_tpu/kernels/intersect.py. Cramer's-rule
+ray/triangle intersection factors into dot products: each ray becomes the
+10-feature row R = [d, o x d, o, 1] and each triangle four 10-vectors whose
+dot products with R are the determinant and the t/u/v numerators of
+ray_tri_dst (pathtracer.wgsl:2922-2943).
 
-The BVH backends (scenes above the dense gate) are not ported yet: they
-raise NotImplementedError (ROADMAP.md Queue A item 8).
+- Dense scenes (<= the dense gate): the closest hit over all triangles is
+  kernel B1/B2 (kernels/dense_intersect.py).
+- Single-level BVH scenes: coherent batches (camera rays) take kernel B4
+  (kernels/packet.py), which also returns the winner's interpolated
+  attributes; divergent bounce batches take the sort wavefront
+  (`closest_hit_wavefront`): rounds of B5 top traversal, a superleaf-keyed
+  sort, B6 pair intersection, an un-sort and a per-ray min, then
+  `wavefront_fetch_attrs` (a sort, B7, an un-sort). The sorts are
+  torch.sort(stable=True) on the int32 key, as XLA's stable sort in the JAX
+  package; an un-sort is a scatter by the original slot. The round loops'
+  conditions are host syncs, counted in HOST_SYNCS.
+- Two-level (instanced) scenes are not ported yet: they raise
+  NotImplementedError (ROADMAP.md Queue A item 9).
+
+`closest_hit_bvh`, the JAX package's masked-stack walk over the binary BVH,
+walks the binary BVH rather than the superleaf tables the kernels walk, so
+it serves as an independent reference: the CPU tests hold it to the JAX
+walk, and the card tests hold the B4 and B5-B7 routes to it.
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass, fields
 
 import torch
 
+from ..accel.superleaf import TOP_FAN
 from ..core import vec3 as v3
 from ..core.vec3 import V3
+from . import bvh as bk
 from . import dense_intersect as dk
+from . import packet
 
 F32_MAX = dk.F32_MAX
 
-BVH_TODO = (
-    "BVH scenes (use_bvh) are not ported yet: ROADMAP.md Queue A item 8 "
-    "and Queue B items B4-B7"
-)
+TWO_LEVEL_TODO = bk.TWO_LEVEL_TODO
+
+# Host syncs of the wavefront's round loops (each loop condition reads a
+# device value). A measurement counter: set to 0 before a run, read after.
+HOST_SYNCS = {"wavefront": 0}
 
 
 @dataclass
@@ -88,11 +108,14 @@ def build_tri_matrix(v0T, e1T, e2T):
 
 
 def scene_tri_matrix(scene):
-    """Dense coefficient matrix over the real world triangles."""
+    """Dense coefficient matrix over the world triangle soup: the real
+    triangles of a dense scene; for superleaf scenes the full fixed-stride
+    repacked soup (padding rows are degenerate: det = 0, never valid)."""
 
-    if scene.use_bvh:
-        raise NotImplementedError(BVH_TODO)
-    n = scene.num_world_tris
+    if scene.use_bvh and scene.sl_count > 0:
+        n = scene.msl_count * scene.sl_stride
+    else:
+        n = scene.num_world_tris
     return build_tri_matrix(
         scene.wt_v0[:, :n], scene.wt_e1[:, :n], scene.wt_e2[:, :n]
     )
@@ -131,7 +154,9 @@ def _ray_tri(ro: V3, rd: V3, tv0: V3, te1: V3, te2: V3, eps):
 
 
 def _apply_active(h: HitInfo, active) -> HitInfo:
-    """Inactive lanes report a clean miss (intersect.py:1136-1142)."""
+    """Inactive lanes report a clean miss (intersect.py:1131-1137), with
+    backside False even where the det-sign fixup flipped the tri-0
+    placeholder."""
 
     if active is None:
         return h
@@ -139,35 +164,501 @@ def _apply_active(h: HitInfo, active) -> HitInfo:
     return h.map(lambda a, b: torch.where(active, a, b), m)
 
 
-def closest_hit(scene, ro: V3, rd: V3, eps, W=None, active=None) -> HitInfo:
-    """ray_scene_intersection (bvh_custom.wgsl:7-110), dense scenes: the
-    closest hit through kernel B1, with the instance det-sign backside
-    flip (intersect.py:1113-1116)."""
+def _fixup_backside(scene, h: HitInfo) -> HitInfo:
+    """World-soup scenes: flip backside by the hit instance's det sign
+    (intersect.py:1113-1116)."""
+
+    flip = scene.inst_det_sign[scene.wt_inst[h.tri.long()].long()] < 0.0
+    h.backside = torch.where(flip, ~h.backside, h.backside)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Masked-stack walk over the binary BVH (the tests' independent reference)
+# ---------------------------------------------------------------------------
+
+
+def _ray_aabb_dst(ro: V3, inv_d: V3, lo: V3, hi: V3):
+    """Slab test (pathtracer.wgsl:2906-2918); F32_MAX on a miss."""
+
+    mn, mx = torch.minimum, torch.maximum
+    tx1 = (lo.x - ro.x) * inv_d.x
+    tx2 = (hi.x - ro.x) * inv_d.x
+    ty1 = (lo.y - ro.y) * inv_d.y
+    ty2 = (hi.y - ro.y) * inv_d.y
+    tz1 = (lo.z - ro.z) * inv_d.z
+    tz2 = (hi.z - ro.z) * inv_d.z
+    dst_far = mn(mn(mx(tx1, tx2), mx(ty1, ty2)), mx(tz1, tz2))
+    dst_near = mx(mx(mn(tx1, tx2), mn(ty1, ty2)), mn(tz1, tz2))
+    did_hit = (dst_far >= dst_near) & (dst_far > 0.0)
+    return torch.where(did_hit, dst_near, F32_MAX)
+
+
+def closest_hit_bvh(scene, ro: V3, rd: V3, eps) -> HitInfo:
+    """The JAX package's masked wavefront walk of the binary world BVH
+    (intersect.py:323-441; bvh_custom.wgsl:246-284): every live lane
+    advances one node per step, leaves test a fixed block of bvh_leaf_size
+    triangles, internal nodes push near child last with best-t pruning.
+    Backside is det > 0 without the det-sign fixup, as in the JAX walk."""
+
+    B = ro.x.shape[0]
+    dev = ro.x.device
+    S = scene.bvh_depth + 2
+    K = scene.bvh_leaf_size
+    inv_d = V3(1.0 / rd.x, 1.0 / rd.y, 1.0 / rd.z)
+    n_soup = scene.wt_v0.shape[1]
+    n_nodes = scene.bvh_count.shape[0]
+    stack = torch.zeros((S, B), dtype=torch.int32, device=dev)
+    sp = torch.ones(B, dtype=torch.int32, device=dev)
+    best_t = torch.full((B,), F32_MAX, dtype=torch.float32, device=dev)
+    best_u, best_v, best_det = (torch.zeros(B, dtype=torch.float32, device=dev)
+                                for _ in range(3))
+    best_tri = torch.zeros(B, dtype=torch.int32, device=dev)
+    while bool((sp > 0).any()):
+        active = sp > 0
+        sp = torch.where(active, sp - 1, 0)
+        node = stack.gather(0, sp.clamp(max=S - 1).long()[None, :])[0].long()
+        count = scene.bvh_count[node]
+        first = scene.bvh_first[node]
+        is_leaf = active & (count > 0)
+        is_int = active & (count == 0)
+        for k in range(K):
+            ti = torch.where(is_leaf, first + k, 0).clamp(max=n_soup - 1).long()
+            t, u, v, det = _ray_tri(ro, rd, v3.gather(scene.wt_v0, ti),
+                                    v3.gather(scene.wt_e1, ti),
+                                    v3.gather(scene.wt_e2, ti), eps)
+            upd = is_leaf & (k < count) & (t < best_t)
+            best_u = torch.where(upd, u, best_u)
+            best_v = torch.where(upd, v, best_v)
+            best_det = torch.where(upd, det, best_det)
+            best_tri = torch.where(upd, ti.to(torch.int32), best_tri)
+            best_t = torch.where(upd, t, best_t)
+        lc = torch.where(is_int, first, 0).clamp(max=n_nodes - 2).long()
+        rc = lc + 1
+        tl = _ray_aabb_dst(ro, inv_d, v3.gather(scene.bvh_min, lc),
+                           v3.gather(scene.bvh_max, lc))
+        tr = _ray_aabb_dst(ro, inv_d, v3.gather(scene.bvh_min, rc),
+                           v3.gather(scene.bvh_max, rc))
+        push_l = is_int & (tl < best_t)
+        push_r = is_int & (tr < best_t)
+        left_near = tl <= tr
+        far = torch.where(left_near, rc, lc).to(torch.int32)
+        near = torch.where(left_near, lc, rc).to(torch.int32)
+        push_far = torch.where(left_near, push_r, push_l)
+        push_near = torch.where(left_near, push_l, push_r)
+        stack = bk._put_row(stack, sp, far, push_far)
+        sp = sp + push_far.to(torch.int32)
+        stack = bk._put_row(stack, sp, near, push_near)
+        sp = sp + push_near.to(torch.int32)
+    return HitInfo(hit=best_t < F32_MAX, dst=best_t, u=best_u, v=best_v,
+                   tri=best_tri, backside=best_det > 0.0)
+
+
+# ---------------------------------------------------------------------------
+# BVH wavefront (kernels B4-B7)
+# ---------------------------------------------------------------------------
+
+WF_Q = 8  # superleaf emits per ray per round (coherent batches)
+WF_Q_DIVERGENT = 8  # bounce batches
+WF_Q_TAIL = 32  # compacted straggler rounds
+WF_RAY_BLOCK = 2048  # lane padding of a batch
+WF_PAIR_BLOCK = 256  # sorted positions per work-item block
+WF_TAIL_C = 2048  # straggler-compaction capacity
+
+# The JAX package's packet-eligibility budgets (intersect.py:79-138), kept
+# so that the same scenes take the same route.
+PACKET_MAX_GSL = 131072
+PACKET_GEO_MAX = 96_000_000
+PACKET_REFS_MAX = 768_000
+_GATE_LOGGED: set = set()
+
+
+def packet_eligible(scene) -> bool:
+    """Whether kernel B4 takes this scene (static capacity gates)."""
+
+    if scene.top_root_is_leaf:
+        return False
+    max_gsl = min(PACKET_MAX_GSL, (2**31 - 1) // max(int(scene.sl_stride), 1))
+    rows = int(scene.top_tab.shape[0])
+    geo_bytes = rows * TOP_FAN * 128 * 4
+    refs_bytes = rows * TOP_FAN * 4
+    reason = None
+    if scene.sl_count > max_gsl:
+        reason = f"{scene.sl_count} superleaves > {max_gsl}"
+    elif geo_bytes > PACKET_GEO_MAX or refs_bytes > PACKET_REFS_MAX:
+        reason = f"top tree of {rows} rows"
+    if reason is None:
+        return True
+    if reason not in _GATE_LOGGED:
+        _GATE_LOGGED.add(reason)
+        print(f"# packet kernel ineligible: {reason}; using the sort "
+              "wavefront", file=sys.stderr)
+    return False
+
+
+def _use_packet(scene, coherent: bool = True) -> bool:
+    """B4 serves coherent batches (camera rays); divergent bounce batches
+    (coherent=False) take the sort wavefront (intersect.py:141-165)."""
+
+    return coherent and packet_eligible(scene)
+
+
+def _wavefront_tri_matrix(scene, W=None):
+    """Coefficient matrix at the repacked-soup width the superleaf kernels
+    slice by superleaf id."""
+
+    need = scene.msl_count * scene.sl_stride
+    if W is None or W.shape[2] != need:
+        W = build_tri_matrix(scene.wt_v0[:, :need], scene.wt_e1[:, :need],
+                             scene.wt_e2[:, :need])
+    return W
+
+
+def _sync(flag: torch.Tensor) -> bool:
+    HOST_SYNCS["wavefront"] += 1
+    return bool(flag)
+
+
+def _pad(x, n, fill):
+    if n == 0:
+        return x
+    return torch.cat([x, torch.full((n,), fill, dtype=x.dtype, device=x.device)])
+
+
+def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
+                          coherent: bool = True) -> HitInfo:
+    """Closest hit of a single-level BVH scene (intersect.py:581-747):
+    kernel B4 for coherent batches; otherwise rounds of B5 top traversal ->
+    superleaf sort -> B6 pair intersection -> un-sort -> per-ray min until
+    every stack drains, full-batch rounds while more than WF_TAIL_C lanes
+    are pending, then rounds over the compacted stragglers. Inactive lanes
+    skip traversal (a miss). No det-sign backside fixup here."""
+
+    B = ro.x.shape[0]
+    dev = ro.x.device
+    SP = scene.sl_stride
+    W = _wavefront_tri_matrix(scene, W)
+    if _use_packet(scene, coherent):
+        t, u, v, det, tri = packet.packet_traverse(scene, ro, rd, eps, W,
+                                                   active=active)
+        return HitInfo(hit=t < F32_MAX, dst=t, u=u, v=v,
+                       tri=tri.clamp_min(0), backside=det > 0.0)
+
+    pad = (-B) % WF_RAY_BLOCK
+    Bp = B + pad
+    rop = V3(*(_pad(c, pad, 0.0) for c in ro))
+    rdp = V3(_pad(rd.x, pad, 0.0), _pad(rd.y, pad, 1.0), _pad(rd.z, pad, 0.0))
+    PB = WF_PAIR_BLOCK
+
+    if scene.top_root_is_leaf:
+        # One superleaf: every ray tests superleaf 0; one item per block.
+        blk = torch.arange(Bp // PB, dtype=torch.int32, device=dev)
+        t, u, v, det, li = bk.pair_intersect(
+            blk, torch.zeros_like(blk), blk * PB, blk * PB + PB, rop, rdp, W,
+            eps, SP=SP, pair_block=PB)
+        return HitInfo(hit=t[:B] < F32_MAX, dst=t[:B], u=u[:B], v=v[:B],
+                       tri=li[:B], backside=det[:B] > 0.0)
+
+    S = bk.stack_depth(scene)
+    Q_main = WF_Q if coherent else WF_Q_DIVERGENT
+    real = torch.arange(Bp, device=dev) < B
+    if active is not None:
+        real = real & _pad(active, pad, False)
+    tab = scene.top_tab.float()
+    c = dict(
+        stack=torch.zeros((S, Bp), dtype=torch.int32, device=dev),
+        sp=real.to(torch.int32),
+        best_t=torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev),
+        best_u=torch.zeros(Bp, dtype=torch.float32, device=dev),
+        best_v=torch.zeros(Bp, dtype=torch.float32, device=dev),
+        best_det=torch.zeros(Bp, dtype=torch.float32, device=dev),
+        best_tri=torch.zeros(Bp, dtype=torch.int32, device=dev),
+    )
+
+    def round_(cc, o, d, Q):
+        return _wf_round(scene, W, tab, eps, o, d, cc, S=S, PB=PB, Q=Q)
+
+    C = min(Bp, WF_TAIL_C)
+    if Bp > C:
+        while _sync((c["sp"] > 0).sum() > C):
+            c = round_(c, rop, rdp, Q_main)
+
+    arange_b = torch.arange(Bp, device=dev)
+    arange_c = torch.arange(C, device=dev)
+    keys_1d = [k for k in c if k != "stack"]
+    while _sync((c["sp"] > 0).any()):
+        pending = c["sp"] > 0
+        n_pend = torch.cumsum(pending.to(torch.int64), 0)
+        slot = torch.where(pending, n_pend - 1, C)
+        idx = torch.zeros(C + 1, dtype=torch.int64, device=dev)
+        idx = idx.scatter(0, slot, arange_b)[:C]  # slot C is dropped
+        valid = arange_c < n_pend[-1]
+        cc = {k: c[k][idx] for k in keys_1d}
+        cc["sp"] = torch.where(valid, cc["sp"], 0)
+        cc["stack"] = c["stack"][:, idx]
+        cc = round_(cc, V3(*(x[idx] for x in rop)), V3(*(x[idx] for x in rdp)),
+                    WF_Q_TAIL)
+        back = torch.where(valid, idx, Bp)  # invalid slots land on Bp, dropped
+        out = {}
+        for k in keys_1d:
+            ext = torch.cat([c[k], c[k][:1]])
+            ext[back] = cc[k]
+            out[k] = ext[:Bp]
+        ext = torch.cat([c["stack"], c["stack"][:, :1]], dim=1)
+        ext[:, back] = cc["stack"]
+        out["stack"] = ext[:, :Bp]
+        c = out
+
+    t = c["best_t"][:B]
+    return HitInfo(hit=t < F32_MAX, dst=t, u=c["best_u"][:B],
+                   v=c["best_v"][:B], tri=c["best_tri"][:B].clamp_min(0),
+                   backside=c["best_det"][:B] > 0.0)
+
+
+def _wf_work_items(skey, n_sl, PB, cnt_sl=None):
+    """Work items from superleaf-sorted keys (empties keyed n_sl), as
+    intersect.py:750-815: superleaf s covers sorted positions
+    [seg_start[s], seg_start[s+1]), one item per (segment, PB-block) it
+    touches; items are block-monotone, sized to the static cap
+    n_blocks + n_sl, and the tail repeats the last valid block/superleaf
+    with lo == hi. Returns (blk, sl, lo, hi, n_real, n_items), all int32
+    device tensors (n_real and n_items of one element)."""
+
+    P = skey.shape[0]
+    dev = skey.device
+    n_pb = P // PB
+    if cnt_sl is not None:
+        seg_start = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                               torch.cumsum(cnt_sl[:n_sl].to(torch.int64), 0)])
+    else:
+        qs = torch.arange(n_sl + 1, dtype=skey.dtype, device=dev)
+        seg_start = torch.searchsorted(skey, qs, right=False)
+    cnt = seg_start[1:] - seg_start[:-1]
+    n_real = seg_start[n_sl:n_sl + 1]
+    first_blk = seg_start[:n_sl] // PB
+    last_blk = torch.maximum(seg_start[1:] - 1, seg_start[:n_sl]) // PB
+    n_items_s = torch.where(cnt > 0, last_blk - first_blk + 1, 0)
+    ioff = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(n_items_s, 0)])
+    total = ioff[n_sl:n_sl + 1]
+    W_CAP = n_pb + min(n_sl, P)
+    karr = torch.arange(W_CAP, dtype=torch.int64, device=dev)
+    s_k = torch.searchsorted(ioff[1:].contiguous(), karr, right=True)
+    s_k = s_k.clamp(max=n_sl - 1)
+    valid = karr < total
+    blk_k = first_blk[s_k] + (karr - ioff[s_k])
+    blk_k = torch.cummax(torch.where(valid, blk_k, -1), 0).values.clamp_min(0)
+    sl_k = torch.cummax(torch.where(valid, s_k, -1), 0).values.clamp_min(0)
+    lo_k = torch.where(valid, seg_start[s_k], 0)
+    hi_k = torch.where(valid, seg_start[s_k + 1], 0)
+    n_items = total.clamp_min(1)
+    i32 = torch.int32
+    return (blk_k.to(i32), sl_k.to(i32), lo_k.to(i32), hi_k.to(i32),
+            n_real.to(i32), n_items.to(i32))
+
+
+def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
+    """One wavefront round over Bp lanes (intersect.py:994-1103): B5 top
+    traversal -> group the (Q, Bp) emits by superleaf (stable sort) -> B6 ->
+    un-sort -> per-ray min with a strict < (the incumbent keeps ties)."""
+
+    Bp = rop.x.shape[0]
+    SP = scene.sl_stride
+    n_sl = scene.sl_count
+    QB = Q * Bp
+    sl, cnt, stack, sp, cnt_sl, aabb = bk.top_traverse(
+        tab, rop, rdp, c["best_t"], c["stack"], c["sp"], S=S, Q=Q, n_sl=n_sl)
+    pair_sl = sl.reshape(-1)  # slot q*Bp + r holds ray r
+    key = torch.where(pair_sl >= 0, pair_sl, n_sl)
+    skey, order = torch.sort(key, stable=True)
+    ray = order % Bp
+    s_ro = V3(*(x[ray] for x in rop))
+    s_rd = V3(*(x[ray] for x in rdp))
+    blk, sl_k, lo, hi, n_real, n_items = _wf_work_items(skey, n_sl, PB, cnt_sl)
+    t, u, v, det, ltri = bk.pair_intersect(
+        blk, sl_k, lo, hi, s_ro, s_rd, W, eps, SP=SP, pair_block=PB,
+        n_items=n_items)
+    t = torch.where(torch.arange(QB, device=t.device) < n_real, t, F32_MAX)
+    gtri = ltri + skey.clamp(max=n_sl - 1) * SP
+
+    def unsort(x):
+        y = torch.empty_like(x)
+        y[order] = x
+        return y.reshape(Q, Bp)
+
+    # argmin returns the first minimum, so the lowest q wins among equal new
+    # hits and the strict < keeps the incumbent on a tie, as a loop over q
+    # with a strict < would.
+    t_q = unsort(t)
+    j = t_q.argmin(0, keepdim=True)
+    t_m, u_m, v_m, det_m, tri_m = (x_q.gather(0, j)[0] for x_q in (
+        t_q, *(unsort(x) for x in (u, v, det, gtri))))
+    wn = t_m < c["best_t"]
+    out = dict(stack=stack, sp=sp)
+    for k, x in (("best_t", t_m), ("best_u", u_m), ("best_v", v_m),
+                 ("best_det", det_m), ("best_tri", tri_m)):
+        out[k] = torch.where(wn, x, c[k])
+    return out
+
+
+@dataclass
+class InterpAttrs:
+    """Per-ray shading attributes interpolated at the hit by kernel B4 or
+    B7 (kernels/bvh.py IA_* layout; intersect.py:818-837): the BVH route's
+    counterpart of the dense kernel's (ATTR_WIDTH, B) rows. Material fields
+    come from mat_id (render/materials.py)."""
+
+    n: V3  # unnormalized interpolated shading normal
+    gn: V3  # geometric normal
+    tu: torch.Tensor
+    tv: torch.Tensor
+    has_uv: torch.Tensor  # bool
+    vc: V3  # interpolated vertex color
+    vca: torch.Tensor
+    det_sign: torch.Tensor
+    mat_id: torch.Tensor  # i32
+    tan: V3 | None = None  # only with normal maps
+    bit: V3 | None = None
+
+    def map(self, fn, *others: "InterpAttrs") -> "InterpAttrs":
+        """Applies fn leaf by leaf (V3 components included)."""
+
+        def one(a, *bs):
+            if a is None:
+                return None
+            if isinstance(a, V3):
+                return V3(*(fn(getattr(a, k), *(getattr(b, k) for b in bs))
+                            for k in "xyz"))
+            return fn(a, *bs)
+
+        return InterpAttrs(*(
+            one(getattr(self, f.name), *(getattr(o, f.name) for o in others))
+            for f in fields(self)
+        ))
+
+
+def _item_instancing(scene, sl_k):
+    """Per-item mesh superleaf and instance tables (intersect.py:840-854):
+    single-level scenes are their own mesh space."""
+
+    if scene.two_level:
+        raise NotImplementedError(TWO_LEVEL_TODO)
+    return sl_k, None, None, None, None
+
+
+def _ia_from_rows(r, with_tan: bool) -> InterpAttrs:
+    def v(sl):
+        return V3(r[sl.start], r[sl.start + 1], r[sl.start + 2])
+
+    return InterpAttrs(
+        n=v(bk.IA_N), gn=v(bk.IA_GN), tu=r[bk.IA_TU], tv=r[bk.IA_TV],
+        has_uv=r[bk.IA_HAS_UV] > 0.0, vc=v(bk.IA_VC), vca=r[bk.IA_VCA],
+        det_sign=r[bk.IA_DET_SIGN], mat_id=r[bk.IA_MAT_ID].to(torch.int32),
+        tan=v(bk.IA_TAN) if with_tan else None,
+        bit=v(bk.IA_BIT) if with_tan else None,
+    )
+
+
+def _attr_fetch_args(scene, hit: HitInfo):
+    """The sort ahead of B7 (intersect.py:857-920): hit lanes sorted by
+    winning superleaf (misses keyed n_sl, last) and their work items.
+    Returns (args, kwargs) of bvh.attr_fetch, the sort order and the padded
+    hit mask."""
+
+    B = hit.tri.shape[0]
+    SP = scene.sl_stride
+    n_sl = scene.sl_count
+    PB = WF_PAIR_BLOCK
+    pad = (-B) % PB
+    hitm = _pad(hit.hit, pad, False)
+    tri = torch.where(hitm, _pad(hit.tri, pad, 0), 0)
+    key = torch.where(hitm, tri // SP, n_sl).to(torch.int32)
+    li = torch.where(hitm, tri % SP, 0).to(torch.int32)
+    skey, order = torch.sort(key, stable=True)
+    blk, sl_k, lo, hi, _, n_items = _wf_work_items(skey, n_sl, PB)
+    msl_k = _item_instancing(scene, sl_k)[0]
+    A3 = scene.wt_attr[: scene.msl_count * SP].reshape(
+        scene.msl_count, SP, dk.ATTR_WIDTH)
+    args = (blk, msl_k, lo, hi, li[order], _pad(hit.u, pad, 0.0)[order],
+            _pad(hit.v, pad, 0.0)[order], A3)
+    kw = dict(pair_block=PB, with_tangents=bool(scene.any_normal_maps),
+              n_items=n_items)
+    return args, kw, order, hitm
+
+
+def wavefront_fetch_attrs(scene, hit: HitInfo) -> InterpAttrs:
+    """InterpAttrs of BVH hits (intersect.py:857-950): rays sorted by
+    winning superleaf (misses last), kernel B7 per work item, rows scattered
+    back to ray order; miss lanes are zero."""
+
+    args, kw, order, hitm = _attr_fetch_args(scene, hit)
+    a = bk.attr_fetch(*args, **kw)
+    base = torch.empty_like(a)
+    base[:, order] = a
+    r = torch.where(hitm[None, :], base, 0.0)[:, :hit.tri.shape[0]]
+    return _ia_from_rows(r, kw["with_tangents"])
+
+
+def _packet_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None):
+    """One B4 launch returning (HitInfo, InterpAttrs): traversal and winner
+    attribute interpolation fused (intersect.py:1182-1226)."""
+
+    W = _wavefront_tri_matrix(scene, W)
+    t, u, v, det, tri, r = packet.packet_traverse(
+        scene, ro, rd, eps, W, active=active, with_attrs=True)
+    h = _fixup_backside(scene, HitInfo(
+        hit=t < F32_MAX, dst=t, u=u, v=v, tri=tri.clamp_min(0),
+        backside=det > 0.0))
+    return _apply_active(h, active), _ia_from_rows(r, bool(scene.any_normal_maps))
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def closest_hit(scene, ro: V3, rd: V3, eps, W=None, active=None,
+                coherent: bool = True) -> HitInfo:
+    """ray_scene_intersection (bvh_custom.wgsl:7-110): dense scenes through
+    kernel B1, single-level BVH scenes through the wavefront, both with the
+    instance det-sign backside flip (intersect.py:1118-1167). `active`
+    masks lanes (inactive lanes report a miss); `coherent=False` marks a
+    divergent bounce batch (no B4)."""
 
     B = ro.x.shape[0]
     if scene.instances_empty:
         return miss(B, ro.x.device)
     if scene.use_bvh:
-        raise NotImplementedError(BVH_TODO)
+        if scene.two_level:
+            raise NotImplementedError(TWO_LEVEL_TODO)
+        h = closest_hit_wavefront(scene, ro, rd, eps, W=W, active=active,
+                                  coherent=coherent)
+        return _apply_active(_fixup_backside(scene, h), active)
     if W is None:
         W = scene_tri_matrix(scene)
     t, u, v, det, idx = dk.dense_closest_hit(W, ray_features(ro, rd), eps)
-    flip = scene.inst_det_sign[scene.wt_inst[idx.long()].long()] < 0.0
-    backside = det > 0.0
-    h = HitInfo(hit=t < F32_MAX, dst=t, u=u, v=v, tri=idx,
-                backside=torch.where(flip, ~backside, backside))
-    return _apply_active(h, active)
+    h = HitInfo(hit=t < F32_MAX, dst=t, u=u, v=v, tri=idx, backside=det > 0.0)
+    return _apply_active(_fixup_backside(scene, h), active)
 
 
-def closest_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None):
-    """Dense closest hit returning (HitInfo, attrs (ATTR_WIDTH, B)) through
-    kernel B2 (intersect.py:1229-1286); a scene without instances returns
-    (miss, None) and shades through gathers."""
+def closest_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None,
+                      coherent: bool = True):
+    """Closest hit with the winner's attributes (intersect.py:1229-1286):
+    dense scenes return the packed (ATTR_WIDTH, B) rows of kernel B2; BVH
+    scenes an InterpAttrs, from B4 on coherent batches and from
+    wavefront_fetch_attrs (B7) otherwise. A scene without instances returns
+    (miss, None)."""
 
     if scene.instances_empty:
         return closest_hit(scene, ro, rd, eps, W=W), None
     if scene.use_bvh:
-        raise NotImplementedError(BVH_TODO)
+        if scene.two_level:
+            raise NotImplementedError(TWO_LEVEL_TODO)
+        if _use_packet(scene, coherent):
+            return _packet_hit_attrs(scene, ro, rd, eps, W=W, active=active)
+        h = closest_hit(scene, ro, rd, eps, W=W, active=active,
+                        coherent=coherent)
+        return h, wavefront_fetch_attrs(scene, h)
     if W is None:
         W = scene_tri_matrix(scene)
     t, u, v, det, idx, attr = dk.dense_closest_hit_attrs(

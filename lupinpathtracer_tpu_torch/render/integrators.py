@@ -40,23 +40,38 @@ MIS_TODO = "the MIS integrator is not ported yet: ROADMAP.md Queue A item 5"
 
 
 def make_ctx(scene, eps):
-    """Per-render precomputation: the dense triangle matrix and, for many
-    light triangles, the light-triangle matrix of the pdf pass."""
+    """Per-render precomputation: the triangle coefficient matrix (dense
+    scenes and the superleaf wavefront both use it) and, for many light
+    triangles, the light-triangle matrix of the pdf pass."""
 
-    W = intersect.scene_tri_matrix(scene)
+    W = (None if scene.use_bvh and scene.sl_count == 0
+         else intersect.scene_tri_matrix(scene))
     small_lights = scene.lt_v0.shape[1] <= lights.SMALL_LIGHT_TRIS
     Wl = (None if (scene.lights_empty or small_lights)
           else lights.light_tri_matrix(scene))
     return dict(eps=eps, W=W, Wl=Wl)
 
 
-def ray_skip_alpha(scene, ctx, ro, rd, state, mask, active=None):
+def _blend_attrs(mask, a, b):
+    """Per-lane select of either attribute layout: the dense (AW, B) rows
+    along their lane axis, an InterpAttrs leaf by leaf."""
+
+    if isinstance(a, intersect.InterpAttrs):
+        return a.map(lambda x, y: torch.where(mask, x, y), b)
+    return torch.where(mask[None, :], a, b)
+
+
+def ray_skip_alpha(scene, ctx, ro, rd, state, mask, active=None,
+                   coherent=True):
     """ray_skip_alpha_stochastically (bvh_custom.wgsl:154-180): re-cast
     through lanes whose opacity test fails, accumulating distance. Opaque
-    scenes (static has_alpha False) pay exactly one intersection."""
+    scenes (static has_alpha False) pay exactly one intersection.
+    `coherent=False` marks a divergent bounce batch (BVH scenes then skip
+    kernel B4 for the sort wavefront)."""
 
     hit, attrs = intersect.closest_hit_attrs(
-        scene, ro, rd, ctx["eps"], W=ctx["W"], active=active
+        scene, ro, rd, ctx["eps"], W=ctx["W"], active=active,
+        coherent=coherent,
     )
     if not scene.has_alpha:
         return hit, attrs, state
@@ -70,11 +85,12 @@ def ray_skip_alpha(scene, ctx, ro, rd, state, mask, active=None):
     i = 0
     while bool(recast.any()) and i < MAX_OPACITY_BOUNCES - 1:
         nh, nat = intersect.closest_hit_attrs(
-            scene, V3(*ro_c), rd, ctx["eps"], W=ctx["W"], active=recast
+            scene, V3(*ro_c), rd, ctx["eps"], W=ctx["W"], active=recast,
+            coherent=coherent,
         )
         hit = nh.map(lambda a, b: torch.where(recast, a, b), hit)
         if attrs is not None:
-            attrs = torch.where(recast[None, :], nat, attrs)
+            attrs = _blend_attrs(recast, nat, attrs)
         dst_acc = torch.where(recast, dst_acc + nh.dst, dst_acc)
         op2 = get_opacity(scene, hit, attrs)
         state, r = rng_mod.next_f32(state)
@@ -192,6 +208,8 @@ def _transmit(scene, vol_den, vol_len, alive, hit, weight, tr1, tr2):
 
 
 def _slice_attrs(attrs, lo, hi):
+    if isinstance(attrs, intersect.InterpAttrs):
+        return attrs.map(lambda a: a[lo:hi])
     return None if attrs is None else attrs[:, lo:hi]
 
 
@@ -361,7 +379,8 @@ def _pathtrace_snd(scene, ctx, ro, rd, state, ptype, max_bounces, regen):
         else:
             ro3, rd3, mask3, active3, state3 = ro_a, rd_a, active_a, active_a, state_a
         hit3, attrs3, state3 = ray_skip_alpha(
-            scene, ctx, ro3, rd3, state3, mask3, active=active3
+            scene, ctx, ro3, rd3, state3, mask3, active=active3,
+            coherent=False,
         )
         state_a = state3[:B]
         hit_a = hit3.map(lambda a: a[:B])

@@ -6,10 +6,11 @@ The counterpart of lupinpathtracer_tpu/render/materials.py
 hit's attributes:
 - attrs route: the dense intersector (kernel B2) returns the winner's packed
   attribute row, transposed to (ATTR_WIDTH, B), so each attribute is a row;
+- BVH route: kernel B4 or B7 returns the winner's attributes already
+  interpolated at the hit (kernels/intersect.InterpAttrs); material fields
+  are looked up from its mat_id;
 - gather route (attrs=None): gathers from the component-major (k, Tw)
   world-triangle tables.
-The BVH route's pre-interpolated attributes (InterpAttrs) come with the BVH
-slice.
 """
 
 from __future__ import annotations
@@ -19,9 +20,11 @@ from dataclasses import dataclass
 import torch
 
 from ..core import vec3 as v3
+from ..core.tables import sel_by_id
 from ..core.types import MIN_ROUGHNESS, MaterialType
 from ..core.vec3 import V3
 from ..kernels import dense_intersect as pk
+from ..kernels.intersect import InterpAttrs
 from ..kernels.texture import sample_texture, srgb_to_linear
 
 
@@ -69,6 +72,8 @@ def hit_texcoords(scene, hit, attrs=None):
     if not scene.any_uv:
         z = torch.zeros_like(hit.u)
         return z, z, torch.zeros_like(hit.hit)
+    if isinstance(attrs, InterpAttrs):
+        return attrs.tu, attrs.tv, attrs.has_uv
     if attrs is not None:
         u0, v0 = _a_v2(attrs, pk.ATTR_UV0)
         u1, v1 = _a_v2(attrs, pk.ATTR_UV1)
@@ -85,8 +90,25 @@ def hit_texcoords(scene, hit, attrs=None):
 
 
 def _mat_fields(scene, hit, attrs):
-    """Per-lane material row (attrs route: packed row; else gathers)."""
+    """Per-lane material row (attrs route: packed row; BVH route: the
+    material table at mat_id; else gathers)."""
 
+    if isinstance(attrs, InterpAttrs):
+        mid = attrs.mat_id
+        return dict(
+            base_color=V3(*(sel_by_id(scene.mat_color[c], mid) for c in range(3))),
+            base_alpha=sel_by_id(scene.mat_color[3], mid),
+            emission=V3(*(sel_by_id(scene.mat_emission[c], mid) for c in range(3))),
+            scattering=V3(*(sel_by_id(scene.mat_scattering[c], mid)
+                            for c in range(3))),
+            mtype=sel_by_id(scene.mat_type, mid),
+            roughness=sel_by_id(scene.mat_roughness, mid),
+            metallic=sel_by_id(scene.mat_metallic, mid),
+            ior=sel_by_id(scene.mat_ior, mid),
+            aniso=sel_by_id(scene.mat_sc_anisotropy, mid),
+            tr_depth=sel_by_id(scene.mat_tr_depth, mid),
+            tex=[sel_by_id(scene.mat_tex[k], mid) for k in range(5)],
+        )
     if attrs is not None:
         color_rgb, color_a = _a_v4(attrs, pk.ATTR_MAT_COLOR)
         return dict(
@@ -143,7 +165,9 @@ def get_material_point(scene, hit, attrs=None) -> MaterialPoint:
     metallic_sample = rm_rgb.z  # blue channel
     scattering_rgb, _ = tex_sample(3)
 
-    if scene.any_vert_colors:
+    if scene.any_vert_colors and isinstance(attrs, InterpAttrs):
+        vert_rgb, vert_a = attrs.vc, attrs.vca  # interpolated in-kernel
+    elif scene.any_vert_colors:
         if attrs is not None:
             c0, a0 = _a_v4(attrs, pk.ATTR_C0)
             c1, a1 = _a_v4(attrs, pk.ATTR_C1)
@@ -212,7 +236,12 @@ def get_opacity(scene, hit, attrs=None):
     alpha, pathtracer.wgsl:1285-1316), equal to get_material_point's."""
 
     B, dev = hit.u.shape[0], hit.u.device
-    if attrs is not None:
+    if isinstance(attrs, InterpAttrs):
+        base_alpha = sel_by_id(scene.mat_color[3], attrs.mat_id)
+        tex0 = sel_by_id(scene.mat_tex[0], attrs.mat_id)
+        vert_a = (attrs.vca if scene.any_vert_colors
+                  else torch.ones(B, dtype=torch.float32, device=dev))
+    elif attrs is not None:
         base_alpha = attrs[pk.ATTR_MAT_COLOR.start + 3]
         tex0 = attrs[pk.ATTR_MAT_TEX.start].to(torch.int32)
         if scene.any_vert_colors:
@@ -245,21 +274,28 @@ def compute_shading_normal(scene, hit, attrs=None) -> V3:
     """compute_shading_normal (pathtracer.wgsl:1344-1384): interpolate baked
     world-space vertex normals; optional UV-tangent-frame normal mapping."""
 
-    if attrs is not None:
-        n0 = _a_v3(attrs, pk.ATTR_N0)
-        n1 = _a_v3(attrs, pk.ATTR_N1)
-        n2 = _a_v3(attrs, pk.ATTR_N2)
+    if isinstance(attrs, InterpAttrs):
+        n = v3.normalize(attrs.n)  # interpolated in-kernel
     else:
-        t = _tri(hit)
-        n0 = v3.gather(scene.wt_n0, t)
-        n1 = v3.gather(scene.wt_n1, t)
-        n2 = v3.gather(scene.wt_n2, t)
-    w = 1.0 - hit.u - hit.v
-    n = v3.normalize(n0 * w + n1 * hit.u + n2 * hit.v)
+        if attrs is not None:
+            n0 = _a_v3(attrs, pk.ATTR_N0)
+            n1 = _a_v3(attrs, pk.ATTR_N1)
+            n2 = _a_v3(attrs, pk.ATTR_N2)
+        else:
+            t = _tri(hit)
+            n0 = v3.gather(scene.wt_n0, t)
+            n1 = v3.gather(scene.wt_n1, t)
+            n2 = v3.gather(scene.wt_n2, t)
+        w = 1.0 - hit.u - hit.v
+        n = v3.normalize(n0 * w + n1 * hit.u + n2 * hit.v)
 
     if scene.any_normal_maps:
         u, v2_, has_uv = hit_texcoords(scene, hit, attrs)
-        if attrs is not None:
+        if isinstance(attrs, InterpAttrs):
+            ntex = torch.where(
+                has_uv, sel_by_id(scene.mat_tex[4], attrs.mat_id), -1)
+            tangent, bitangent = attrs.tan, attrs.bit
+        elif attrs is not None:
             ntex = torch.where(
                 has_uv, attrs[pk.ATTR_MAT_TEX.start + 4].to(torch.int32), -1
             )

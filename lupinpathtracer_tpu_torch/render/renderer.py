@@ -5,15 +5,17 @@ The counterpart of the pathtrace half of lupinpathtracer_tpu/render/renderer.py
 pathtracer.wgsl:279-288). A dispatch renders one tile (or the whole frame)
 as one flat ray batch. Scenes that pass the megakernel gate run through
 kernel B3 (kernels/mega.py); the rest through the wavefront loop
-(render/integrators.py) and kernel B2.
+(render/integrators.py): dense scenes with kernel B2, single-level BVH
+scenes with kernels B4 (camera rays) and B5/B6/B7 (bounces).
 
-Not ported yet, and raising NotImplementedError: BVH scenes (ROADMAP.md
-Queue A item 8), the MIS integrator (item 5), the falsecolor and debug
-dispatches (item 10).
+Not ported yet, and raising NotImplementedError: two-level (instanced) BVH
+scenes (ROADMAP.md Queue A item 9), the MIS integrator (item 5), the
+falsecolor and debug dispatches (item 10).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import weakref
 
 import numpy as np
@@ -177,6 +179,22 @@ def _runtime_checks(scene, baked: BakedPathtraceParams):
 
 _VALIDATED_SCENES: set = set()
 
+# Self-bounding dispatch (renderer.py:358-380): without explicit tiling, a
+# BVH frame whose rays x superleaf stride exceeds this budget is split into
+# square tiles (largest power of two from 1024 down to the floor).
+DISPATCH_RAY_STRIDE_BUDGET = 700_000_000
+DISPATCH_TILE_FLOOR = 128
+
+
+def _select_backend(scene, desc: PathtraceDesc):
+    """Per-dispatch traversal choice (renderer.py:207-220; renderer.rs:764,
+    :772): `force_software_bvh` puts a dense scene on the BVH wavefront
+    (every scene carries superleaf tables)."""
+
+    if desc.force_software_bvh and not scene.use_bvh and scene.sl_count > 0:
+        return dataclasses.replace(scene, statics={**scene.statics, "use_bvh": True})
+    return scene
+
 
 def pathtrace_scene(scene, image, desc: PathtraceDesc,
                     baked: BakedPathtraceParams, stats: dict | None = None):
@@ -187,27 +205,45 @@ def pathtrace_scene(scene, image, desc: PathtraceDesc,
     measurement hook (the JAX API has no such argument) and costs one
     device-to-host sync per dispatch, so leave it None otherwise."""
 
-    if scene.use_bvh or desc.force_software_bvh:
-        raise NotImplementedError(intersect.BVH_TODO)
+    if scene.use_bvh and scene.two_level:
+        raise NotImplementedError(intersect.TWO_LEVEL_TODO)
     if int(desc.pathtrace_type) == int(PathtraceType.MIS):
         raise NotImplementedError(integrators.MIS_TODO)
     if image.device != scene.device:
         raise ValueError(f"image on {image.device}, scene on {scene.device}")
     _runtime_checks(scene, baked)
+    scene = _select_backend(scene, desc)
     tile_wh, (tx, ty) = _tile_geometry(image.shape, desc)
-    return _render_pathtrace(
-        scene, image, _camera_args(desc), tx, ty,
-        int(desc.accum_params.counter), int(desc.advanced.rng_seed),
-        float(np.float32(desc.advanced.ray_epsilon)),
-        float(np.float32(desc.advanced.max_radiance)),
-        tile_wh=tile_wh,
-        spp=int(baked.samples_per_pixel),
-        max_bounces=int(baked.max_bounces),
-        ptype=int(desc.pathtrace_type),
-        is_ortho=bool(desc.camera_params.is_orthographic),
-        accumulate=bool(desc.accum_params.accumulate),
-        stats=stats,
-    )
+
+    def one(tile_wh, tx, ty, image):
+        return _render_pathtrace(
+            scene, image, _camera_args(desc), tx, ty,
+            int(desc.accum_params.counter), int(desc.advanced.rng_seed),
+            float(np.float32(desc.advanced.ray_epsilon)),
+            float(np.float32(desc.advanced.max_radiance)),
+            tile_wh=tile_wh,
+            spp=int(baked.samples_per_pixel),
+            max_bounces=int(baked.max_bounces),
+            ptype=int(desc.pathtrace_type),
+            is_ortho=bool(desc.camera_params.is_orthographic),
+            accumulate=bool(desc.accum_params.accumulate),
+            stats=stats,
+        )
+
+    if not desc.tile_params.enabled and scene.use_bvh and scene.sl_count:
+        H, W = image.shape[:2]
+        stride = max(int(scene.sl_stride), 1)
+        if W * H * stride > DISPATCH_RAY_STRIDE_BUDGET:
+            ts = 1024
+            while (ts > DISPATCH_TILE_FLOOR
+                   and ts * ts * stride > DISPATCH_RAY_STRIDE_BUDGET):
+                ts //= 2
+            nx, ny = get_num_tiles(W, H, ts)
+            for idx in range(nx * ny):
+                tx, ty = (idx % nx) * ts, (idx // nx) * ts
+                image = one((min(ts, W - tx), min(ts, H - ty)), tx, ty, image)
+            return image
+    return one(tile_wh, tx, ty, image)
 
 
 def pathtrace_scene_falsecolor(scene, image, desc, baked, falsecolor_type):

@@ -245,12 +245,13 @@ def test_uncovered_paths_raise():
     img = tl.new_accumulation_buffer(8, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 5"):
         tl.pathtrace_scene(scene, img, _desc(tl, PT.MIS), baked)
+    # Single-level BVH scenes render now (item 8); two-level ones raise.
     desc = _desc(tl, PT.STANDARD)
     desc.force_software_bvh = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 8"):
-        tl.pathtrace_scene(scene, img, desc, baked)
+    assert torch.isfinite(tl.pathtrace_scene(scene, img, desc, baked)).all()
     big = tl.build_scene_torch(grid_field(tl, tbuiltin), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 8"):
+    assert big.use_bvh and big.two_level
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 9"):
         tl.pathtrace_scene(big, img, _desc(tl, PT.STANDARD), baked)
     for fn in (trenderer.pathtrace_scene_falsecolor, trenderer.pathtrace_scene_debug):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
