@@ -12,12 +12,22 @@ main paths through its entry points:
   512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 on camera rays,
   B5/B6/B7 on every bounce batch), B4-B7 against their plain versions at
   those shapes, and the Cornell box forced onto the BVH route
-  (force_software_bvh: B6/B7) against the golden.
+  (force_software_bvh: B6/B7) against the golden;
+- two-level route: the 100,000-instance field (bench.py's instanced100k),
+  512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 in stream mode
+  on camera rays; B5, B6 on rays moved to mesh space in PyTorch, B7 plus
+  the PyTorch rotation on every bounce batch), and a 2,000-instance field
+  small enough for B4's resident mode and the instance word of B6 and B7;
+  on both, each kernel and mode against its plain version, both B4 modes
+  and both instance routes against each other, and closest_hit against the
+  brute-force two-level reference;
+- the B6' ablation variants (tools/prof_pair.py of the port) on the
+  round-1 states of the terrain2M and instanced100k camera batches.
 Each phase prints one JSON line; any failure raises and exits nonzero. The
-kernels line holds each kernel's launches on its main path, its error
-against the plain version, its device time (torch.profiler) and the plain
-version's wall time (CUDA events) at the main path's shapes, and its bound
-on an H100 (FP32 67 TFLOP/s, HBM 3.35 TB/s).
+kernels line holds each kernel's (and mode's) launches on its main path,
+its error against the plain version, its device time (torch.profiler) and
+the plain version's wall time (CUDA events) at the main path's shapes, and
+its bound on an H100 (FP32 67 TFLOP/s, HBM 3.35 TB/s).
 The last line is {"ok": true, "device": {...}}. Without a GPU it exits
 nonzero and prints no result. Imports nothing of JAX.
 """
@@ -38,10 +48,15 @@ PEAK_F32 = 67e12  # H100 SXM FP32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "cornell_32_standard.npy")
 TERRAIN_TRIS = 2_000_000  # bench.py's terrain2M
+FIELD_INSTANCES = 100_000  # bench.py's instanced100k
+SMALL_FIELD_INSTANCES = 2_000  # B4 resident, B6/B7 with the instance word
 # f32 operations per unit of work, for the bounds:
 PAIR_OPS = 81  # ray/triangle: 4 ten-term dot products (76) + 1/det, 3 products, u+v
 SLAB_OPS = 26  # ray/box: 6 subtractions, 6 products, 10 min/max, 4 compares
 SORT_OPS = 12  # B5 per child: 19 comparators x (1 compare + 4 selects) / 8
+XFORM_OPS = 33  # ray to mesh space: origin 9 products + 9 sums, direction 9 + 6
+LEAF_FRAME_OPS = XFORM_OPS + 9 + 3  # B4 per leaf visit: + o x d, 3 reciprocals
+ROTATE_OPS = 2 * 15 + 8  # B7 per winner: two rotations, gn's length and scale
 
 
 def emit(phase: str, **kw):
@@ -65,27 +80,16 @@ def cuda_ms(fn, reps: int):
 
 
 def kernel_ms(fn, kernel: str, reps: int):
-    """Mean device milliseconds of the CUDA kernel whose name contains
-    `kernel`, which fn() launches once per call, over reps calls
-    (torch.profiler, CUDA activity, after one warm-up call), and the output
-    of the last call. CUDA events around a loop of calls would also count
-    the host's launch overhead, which is longer than the shortest kernels
-    (B5, B7) run. The profiler can drop a launch's record, so the mean is
-    over the records it kept, which must be most of them."""
+    """(ms, out, timed_by) of the port's tools/prof_pair.py::kernel_ms: the
+    mean device milliseconds of the CUDA kernel whose name contains `kernel`
+    over reps calls of fn() (torch.profiler device records), the last
+    call's output, and "device_records"; "events" where the profiler kept
+    no records and CUDA events timed the calls, host overhead included.
+    timed_by goes into the kernel's own entry of the kernels line."""
 
-    from torch.profiler import ProfilerActivity, profile
+    from lupinpathtracer_tpu_torch.tools.prof_pair import kernel_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            out = fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    assert reps // 2 < len(spans) <= reps, (kernel, len(spans), reps)
-    return sum(spans) / len(spans) / 1e3, out
+    return timed(fn, kernel, reps)
 
 
 def compare_hits(k, p, F32_MAX):
@@ -271,7 +275,8 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
                height=288, spp=4, bounces=8, timed_accums=3):
     """Phases 7-10: the terrain build, B4-B7 against their plain versions at
     the BVH main path's shapes, the BVH main path, and the Cornell box on
-    the BVH route against the golden. Returns the B4-B7 kernel entries."""
+    the BVH route against the golden. Returns the B4-B7 kernel entries and
+    the terrain's (scene, camera rays, W, eps) for the B6' phase."""
 
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.accel.superleaf import TOP_COLS, TOP_FAN
@@ -317,7 +322,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
 
     # -- 8. B4-B7 against their plain versions at the main path's shapes ---
     # B4 with attributes on the camera rays (the camera batch).
-    t_b4, k4 = kernel_ms(
+    t_b4, k4, by4 = kernel_ms(
         lambda: packet.packet_traverse(ts, ro, rd, eps, W, with_attrs=True),
         "packet_kernel", 5)
     work4: dict = {}
@@ -351,12 +356,10 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     bt0 = torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev)
 
     # B5: the batch's first round. It updates its stack in place, so every
-    # call (the warm-up and the timed ones) gets a fresh copy made ahead.
-    reps5 = 10
-    stacks = iter([stack0.clone() for _ in range(reps5 + 1)])
-    t_b5, k5 = kernel_ms(lambda: bvh.top_traverse(
-        tab, op, dp, bt0, next(stacks), sp0, S=S, Q=Q, n_sl=n_sl),
-        "top_kernel", reps5)
+    # call gets a fresh copy (the copy is not part of the kernel's record).
+    t_b5, k5, by5 = kernel_ms(lambda: bvh.top_traverse(
+        tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl),
+        "top_kernel", 10)
     work5: dict = {}
     p_b5, p5 = plain_ms(lambda: bvh.top_traverse_plain(
         tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl,
@@ -388,7 +391,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
         skey, n_sl, PB, k5[4])
     args6 = (blk, sl_k, lo, hi, so, sd, W, eps)
     kw6 = dict(SP=SP, pair_block=PB, n_items=n_items)
-    t_b6, k6 = kernel_ms(lambda: bvh.pair_intersect(*args6, **kw6),
+    t_b6, k6, by6 = kernel_ms(lambda: bvh.pair_intersect(*args6, **kw6),
                          "pair_kernel", 5)
     p_b6, p6 = plain_ms(lambda: bvh.pair_intersect_plain(*args6, **kw6))
     res_b6 = compare_hits(k6, p6, F32_MAX)
@@ -403,7 +406,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     # B7 on the batch's winners, sorted as wavefront_fetch_attrs sorts them.
     h = intersect.closest_hit_wavefront(ts, o, d, eps, W=W, coherent=False)
     args7, kw7, _, _ = intersect._attr_fetch_args(ts, h)
-    t_b7, k7 = kernel_ms(lambda: bvh.attr_fetch(*args7, **kw7),
+    t_b7, k7, by7 = kernel_ms(lambda: bvh.attr_fetch(*args7, **kw7),
                          "attr_kernel", 10)
     p_b7, p7 = plain_ms(lambda: bvh.attr_fetch_plain(*args7, **kw7))
     err7 = float((k7 - p7).abs().max())
@@ -440,7 +443,8 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
          wavefront_host_syncs_per_accumulation=syncs / timed_accums,
          dense_launches=dense_launches, image_mean=float(img.mean()),
          image_finite=bool(np.isfinite(img).all()), card=smi)
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in (
+        "packet_traverse", "top_traverse", "pair_intersect", "attr_fetch")), launches
     assert not any(dense_launches.values()), dense_launches
     assert np.isfinite(img).all() and img.mean() > 0
 
@@ -471,24 +475,411 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     assert mega.LAUNCHES["mega_pathtrace_spp"] == 0
     assert within >= 0.99 and mean_rel <= 0.01
 
-    def entry(name, src, replaces, key, err, ms, p_ms, bnd):
-        return dict(name=name, route="cuda",
-                    source=f"lupinpathtracer_tpu_torch/csrc/{src}",
-                    replaces=f"lupinpathtracer_tpu/kernels/{replaces}",
-                    launches=launches[key], max_abs_err=err, ms=ms,
-                    plain_ms=p_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                    library_ms=None)
-
     return [
-        entry("B4 packet_traverse", "packet.cu", "pallas_packet.py:1011",
-              "packet_traverse", res_b4["max_abs_err"], t_b4, p_b4, bnd_b4),
-        entry("B5 top_traverse", "bvh.cu", "pallas_bvh.py:344", "top_traverse",
-              err5, t_b5, p_b5, bnd_b5),
-        entry("B6 pair_intersect", "bvh.cu", "pallas_bvh.py:665",
-              "pair_intersect", res_b6["max_abs_err"], t_b6, p_b6, bnd_b6),
-        entry("B7 attr_fetch", "bvh.cu", "pallas_bvh.py:896", "attr_fetch",
-              err7, t_b7, p_b7, bnd_b7),
-    ]
+        entry("B4 packet_traverse", "packet.cu", "lupinpathtracer_tpu/kernels/pallas_packet.py:1011",
+              launches["packet_traverse"], res_b4["max_abs_err"], t_b4, p_b4,
+              bnd_b4, by4),
+        entry("B5 top_traverse", "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:344",
+              launches["top_traverse"], err5, t_b5, p_b5, bnd_b5, by5),
+        entry("B6 pair_intersect", "pair_kernel.cuh", "lupinpathtracer_tpu/kernels/pallas_bvh.py:665",
+              launches["pair_intersect"], res_b6["max_abs_err"], t_b6, p_b6,
+              bnd_b6, by6),
+        entry("B7 attr_fetch", "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
+              launches["attr_fetch"], err7, t_b7, p_b7, bnd_b7, by7),
+    ], (ts, ro, rd, W, eps)
+
+
+def entry(name, src, replaces, launches, err, ms, p_ms, bnd, timed_by):
+    """One element of the kernels line. `ms` is the kernel's device time
+    where timed_by is "device_records" (kernel_ms)."""
+
+    return dict(name=name, route="cuda",
+                source=f"lupinpathtracer_tpu_torch/csrc/{src}",
+                replaces=replaces, launches=launches,
+                max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=None, timed_by=timed_by)
+
+
+def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
+    """One instanced scene's kernels against their plain versions at its
+    main path's shapes: B4 in both modes on the camera rays; B5, and B6 and
+    B7 on both instance routes (the per-item instance word; PyTorch moving
+    the rays to mesh space before B6 and rotating the rows after B7), on
+    the first bounce batch; closest_hit against the brute-force reference
+    on `brute_rays` of those rays. Returns {key: (max_abs_err, ms, plain
+    ms, bound, timed_by)}, entry()'s last arguments, and the camera batch
+    (ro, rd, W, eps)."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.accel.superleaf import TOP_COLS, TOP_FAN
+    from lupinpathtracer_tpu_torch.core.vec3 import V3
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+    from lupinpathtracer_tpu_torch.tools import prof_pair
+
+    F32_MAX = dk.F32_MAX
+    SP, n_sl, n_inst = ts.sl_stride, ts.sl_count, ts.num_instances
+    rows = ts.top_tab.shape[0]
+    eps = float(np.float32(lt.PathtraceDesc().advanced.ray_epsilon))
+    W = intersect.scene_tri_matrix(ts)
+    ro, rd = prof_pair.camera_rays(cams[0], width, height, dev)
+    B = ro.x.shape[0]
+    out = {}
+
+    # B4, both modes, on the camera rays.
+    work4: dict = {}
+    p_b4, p4 = plain_ms(lambda: packet.packet_traverse_plain(
+        ts, ro, rd, eps, W, counts=work4))
+    k4 = {}
+    for mode, stream in (("resident", False), ("stream", True)):
+        t_ms, k4[mode], by = kernel_ms(
+            lambda: packet.packet_traverse(ts, ro, rd, eps, W, stream=stream),
+            "packet_kernel", 5)
+        res = compare_hits(k4[mode], p4, F32_MAX)
+        assert res["hit_flag_mismatch"] == 0, res
+        tables = (work4["leaf_visits"] * 64 if stream
+                  else n_sl * 8 + n_inst * 48)
+        bnd = bound_ms(
+            work4["tri_tests"] * PAIR_OPS + work4["box_tests"] * SLAB_OPS
+            + work4["leaf_visits"] * LEAF_FRAME_OPS,
+            B * 24 + B * 20 + work4["chunks"] * work4["chunk_tris"] * 160
+            + rows * TOP_FAN * 36 + ts.sl_sub.numel() * 4 + tables)
+        out["b4_" + mode] = (res["max_abs_err"], t_ms, p_b4, bnd, by)
+    modes_equal = all(bool(torch.equal(a, b))
+                      for a, b in zip(k4["resident"], k4["stream"]))
+    hits4 = int((p4[0] < F32_MAX).sum())
+    emit("b4_two_level_vs_plain", scene=tag, hits=hits4,
+         routed_mode="resident" if packet.tables_resident(ts) else "stream",
+         modes_equal=modes_equal, ms={m: out["b4_" + m][1] for m in k4},
+         **work4, **res)
+    assert modes_equal and hits4 > 0
+
+    # The first bounce batch, from the camera hits.
+    h_cam = intersect.closest_hit(ts, ro, rd, eps, W=W)
+    gn = intersect.wavefront_fetch_attrs(ts, h_cam).gn
+    o, d = bounce_batch(ro, rd, h_cam.dst, gn, F32_MAX, seed=1)
+    pad = (-B) % intersect.WF_RAY_BLOCK
+    Bp = B + pad
+    op = V3(*(intersect._pad(c, pad, 0.0) for c in o))
+    dp = V3(intersect._pad(d.x, pad, 0.0), intersect._pad(d.y, pad, 1.0),
+            intersect._pad(d.z, pad, 0.0))
+    S = bvh.stack_depth(ts)
+    Q = intersect.WF_Q_DIVERGENT
+    tab = ts.top_tab.float()
+    stack0 = torch.zeros((S, Bp), dtype=torch.int32, device=dev)
+    sp0 = (torch.arange(Bp, device=dev) < B).to(torch.int32)
+    bt0 = torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev)
+
+    # B5 on that batch's first round (its stack is updated in place).
+    t_b5, k5, by5 = kernel_ms(lambda: bvh.top_traverse(
+        tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl),
+        "top_kernel", 5)
+    work5: dict = {}
+    p_b5, p5 = plain_ms(lambda: bvh.top_traverse_plain(
+        tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl,
+        counts=work5))
+    b5_equal = [a is b if a is None else bool(torch.equal(a, b))
+                for a, b in zip(k5, p5)]
+    err5 = max(float((a.long() - b.long()).abs().max())
+               for a, b in zip(k5, p5) if a is not None)
+    aabb5 = int(k5[5].sum())
+    emit("b5_two_level_vs_plain", scene=tag, lanes=Bp, Q=Q, S=S,
+         emits=int(k5[1].sum()), aabb_tests=aabb5, histogram=k5[4] is not None,
+         pending=int((k5[3] > 0).sum()), outputs_equal=b5_equal,
+         max_abs_err=err5, **work5)
+    assert all(b5_equal) and err5 == 0, b5_equal
+    out["b5"] = (err5, t_b5, p_b5, bound_ms(
+        aabb5 * (SLAB_OPS + SORT_OPS),
+        Bp * (28 + 2 * 4 + Q * 4 + 2 * 4)
+        + (work5["pops"] + work5["pushes"]) * 4
+        + bvh.hist_bins(n_sl) * 4 + rows * TOP_COLS * 4), by5)
+
+    # B6 on the round's pairs, both instance routes: forcing INST_SMEM_MAX
+    # picks the route that _wf_pairs prepares.
+    c0 = dict(stack=stack0, sp=sp0, best_t=bt0)
+    routed_huge = intersect._huge_inst(ts)
+    inst_max = intersect.INST_SMEM_MAX
+    k6, k7, h7 = {}, {}, {}
+    try:
+        for route, imax in (("inst", n_inst), ("pre", 0)):
+            intersect.INST_SMEM_MAX = imax
+            c0["stack"] = stack0.clone()
+            pre_ms, (args6, kw6, skey, _, n_real, _, _) = plain_ms(
+                lambda: intersect._wf_pairs(ts, tab, op, dp, c0, S=S,
+                                            PB=intersect.WF_PAIR_BLOCK, Q=Q))
+            assert (kw6["inst"] is None) == (route == "pre")
+            t_b6, k6[route], by6 = kernel_ms(
+                lambda: bvh.pair_intersect(*args6, W, eps, **kw6),
+                "pair_kernel", 5)
+            p_b6, p6 = plain_ms(lambda: bvh.pair_intersect_plain(
+                *args6, W, eps, **kw6))
+            res6 = compare_hits(k6[route], p6, F32_MAX)
+            assert res6["hit_flag_mismatch"] == 0, res6
+            pairs, items = int(n_real), int(kw6["n_items"])
+            msl_used = int(torch.unique(args6[1][:items]).numel())
+            xform = route == "inst"
+            bnd6 = bound_ms(
+                pairs * SP * PAIR_OPS + (pairs * XFORM_OPS if xform else 0),
+                pairs * (24 + 20) + items * (20 if xform else 16)
+                + msl_used * SP * 160 + (n_inst * 48 if xform else 0))
+            out["b6_" + route] = (res6["max_abs_err"], t_b6, p_b6, bnd6, by6)
+            emit("b6_two_level_vs_plain", scene=tag, route=route, pairs=pairs,
+                 items=items, item_capacity=int(args6[0].shape[0]),
+                 mesh_superleaves=msl_used, wf_pairs_ms=pre_ms, **res6)
+
+            # B7 on the batch's winners, sorted as wavefront_fetch_attrs
+            # sorts them; on the "pre" route the rows are rotated after it.
+            h7[route] = intersect.closest_hit(ts, o, d, eps, W=W, coherent=False)
+            args7, kw7, _, _ = intersect._attr_fetch_args(ts, h7[route])
+            assert (kw7["inst"] is None) == (route == "pre")
+            t_b7, rows7, by7 = kernel_ms(lambda: bvh.attr_fetch(*args7, **kw7),
+                                    "attr_kernel", 5)
+            p_b7, p7 = plain_ms(lambda: bvh.attr_fetch_plain(*args7, **kw7))
+            err7 = float((rows7 - p7).abs().max())
+            rows_equal = bool(torch.equal(rows7, p7))
+            fetch_ms, k7[route] = cuda_ms(
+                lambda: intersect.wavefront_fetch_attrs(ts, h7[route]), 3)
+            hits7 = int(h7[route].hit.sum())
+            row_b = attr_row_bytes(bool(ts.any_normal_maps))
+            bnd7 = bound_ms(
+                hits7 * (11 * 5 + (ROTATE_OPS if xform else 0)),
+                hits7 * (row_b + 12) + rows7.numel() * 4
+                + int(args7[0].shape[0]) * (20 if xform else 16)
+                + (n_inst * 40 if xform else 0))
+            out["b7_" + route] = (err7, t_b7, p_b7, bnd7, by7)
+            emit("b7_two_level_vs_plain", scene=tag, route=route, hits=hits7,
+                 item_capacity=int(args7[0].shape[0]), rows_equal=rows_equal,
+                 max_abs_err=err7, wavefront_fetch_attrs_ms=fetch_ms)
+            # 1 / sqrt is IEEE in the kernel and in PyTorch: equal rows.
+            assert rows_equal
+    finally:
+        intersect.INST_SMEM_MAX = inst_max
+    routes_equal = (
+        all(bool(torch.equal(a, b)) for a, b in zip(k6["inst"], k6["pre"]))
+        and all(bool(torch.equal(getattr(h7["inst"], f), getattr(h7["pre"], f)))
+                for f in ("hit", "dst", "u", "v", "tri", "backside"))
+        and all(bool(torch.equal(a, b)) for f in ("n", "gn")
+                for a, b in zip(getattr(k7["inst"], f), getattr(k7["pre"], f)))
+        and bool(torch.equal(k7["inst"].mat_id, k7["pre"].mat_id)))
+    gn2 = sum(c * c for c in k7["inst"].gn)[h7["inst"].hit]
+    emit("instance_routes", scene=tag, routed="pre" if routed_huge else "inst",
+         routes_equal=routes_equal,
+         gn_unit_max_err=float((gn2 - 1.0).abs().max()))
+    assert routes_equal and float((gn2 - 1.0).abs().max()) <= 1e-5
+
+    # closest_hit on both routes against the brute-force reference.
+    step = max(B // brute_rays, 1)
+    res_b = {}
+    for name_, (O, D) in (("camera", (ro, rd)), ("bounce", (o, d))):
+        O, D = V3(*(c[::step] for c in O)), V3(*(c[::step] for c in D))
+        ref = intersect.closest_hit_brute_two_level(ts, O, D, eps, W, chunk=64)
+        n_ref = max(float(ref.hit.sum()), 1.0)
+        for coherent in (True, False):
+            h = intersect.closest_hit(ts, O, D, eps, W=W, coherent=coherent)
+            both = h.hit & ref.hit
+            r = dict(rays=int(O.x.shape[0]), hits=int(ref.hit.sum()),
+                     hit_flag_mismatch=int((h.hit != ref.hit).sum()),
+                     max_abs_dt=float((h.dst - ref.dst)[both].abs().max()),
+                     same_winner_share=float((h.tri == ref.tri)[ref.hit].sum()) / n_ref)
+            res_b[f"{name_}_{'b4' if coherent else 'wavefront'}"] = r
+            # A grazing hit can fall on the other side of a validity test
+            # when the products are summed in another order.
+            assert r["hit_flag_mismatch"] <= 1e-3 * n_ref, r
+            assert r["same_winner_share"] >= 0.95, r
+            assert torch.allclose(h.dst[both], ref.dst[both], rtol=1e-5, atol=1e-5), r
+    assert res_b["bounce_b4"]["hits"] > 0 and res_b["camera_b4"]["hits"] > 0
+    emit("two_level_vs_brute_force", scene=tag, rtol=1e-5, atol=1e-5, **res_b)
+    return out, (ro, rd, W, eps)
+
+
+def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
+                     timed_accums=3):
+    """The two-level route: the 100,000-instance field's build, kernels and
+    main path, and the 2,000-instance field that takes the in-kernel
+    instance routes. Returns their kernel entries and the 100k field's
+    (scene, camera rays, W, eps) for the B6' phase."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.io import synthetic
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+
+    counters = (bvh.LAUNCHES, bvh.INST_LAUNCHES, packet.LAUNCHES,
+                packet.MODE_LAUNCHES, dk.LAUNCHES, mega.LAUNCHES,
+                intersect.HOST_SYNCS)
+    baked = lt.BakedPathtraceParams(max_bounces=bounces, samples_per_pixel=spp)
+    scenes = {}
+    for tag, n in (("instanced100k", FIELD_INSTANCES),
+                   ("instanced2k", SMALL_FIELD_INSTANCES)):
+        t0 = time.perf_counter()
+        field, cams = synthetic.build_scene_instanced_field(
+            n_instances=n, seed=0, tris_per_mesh=64)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ts = lt.build_scene_torch(field, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        routes = dict(
+            packet_eligible=intersect.packet_eligible(ts),
+            b4_mode="resident" if packet.tables_resident(ts) else "stream",
+            b6_b7_route="pytorch_transform" if intersect._huge_inst(ts)
+            else "instance_word")
+        emit("instanced_build", scene=tag, instances=ts.num_instances,
+             generate_s=gen_s, build_scene_torch_s=build_s, sl_count=ts.sl_count,
+             msl_count=ts.msl_count, sl_stride=ts.sl_stride,
+             nsub=int(ts.sl_sub.shape[1]), top_rows=int(ts.top_tab.shape[0]),
+             top_depth=ts.top_depth, histogram_bins=bvh.hist_bins(ts.sl_count),
+             **routes)
+        assert ts.use_bvh and ts.two_level and routes["packet_eligible"]
+        scenes[tag] = (ts, cams, routes)
+    assert scenes["instanced100k"][2] == dict(
+        packet_eligible=True, b4_mode="stream", b6_b7_route="pytorch_transform")
+    assert scenes["instanced2k"][2] == dict(
+        packet_eligible=True, b4_mode="resident", b6_b7_route="instance_word")
+
+    kernels = []
+    state = None
+    for tag, (ts, cams, routes) in scenes.items():
+        big = tag == "instanced100k"
+        meas, cam_batch = two_level_kernels(
+            ts, cams, tag, dev, width, height, brute_rays=1024 if big else 4096)
+
+        # The main path: bench.py's instanced100k render (camera 0, STANDARD,
+        # max_radiance 10); the small field takes one accumulation of it.
+        desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=10.0)
+        accums = timed_accums if big else 1
+        t0 = time.perf_counter()
+        lt.render_progressive(ts, desc, baked, width, height, 1, device=dev)
+        warm_s = time.perf_counter() - t0
+        stats: dict = {}
+        reset(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = lt.render_progressive(ts, desc, baked, width, height, accums,
+                                    device=dev, stats=stats)
+        wall = time.perf_counter() - t0
+        launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+        by_mode = dict(packet.MODE_LAUNCHES)
+        with_inst = dict(bvh.INST_LAUNCHES)
+        dense_launches = {**dk.LAUNCHES, **mega.LAUNCHES}
+        emit("main_path_instanced", scene=tag, width=width, height=height,
+             integrator="STANDARD", bounces=bounces, spp=spp,
+             accumulations=accums, warmup_s=warm_s, wall_s=wall,
+             s_per_accumulation=wall / accums, rays=stats["rays"],
+             mrays_per_s=stats["rays"] / wall / 1e6,
+             launches_per_accumulation={k: v / accums for k, v in launches.items()},
+             b4_launches_by_mode=by_mode, launches_with_instance_word=with_inst,
+             wavefront_host_syncs_per_accumulation=(
+                 intersect.HOST_SYNCS["wavefront"] / accums),
+             dense_launches=dense_launches, image_mean=float(img.mean()),
+             image_finite=bool(np.isfinite(img).all()), card=smi)
+        assert not any(dense_launches.values()), dense_launches
+        assert np.isfinite(img).all() and img.mean() > 0
+        for key in ("packet_traverse", "top_traverse", "pair_intersect",
+                    "attr_fetch"):
+            assert launches[key] > 0, launches
+        b4_mode = routes["b4_mode"]
+        assert by_mode[b4_mode] == launches["packet_traverse"], by_mode
+        inst_word = routes["b6_b7_route"] == "instance_word"
+        for key, n_with in with_inst.items():
+            assert n_with == (launches[key] if inst_word else 0), with_inst
+        if big:
+            state = (ts, *cam_batch)
+            prof = device_profile(lambda: lt.render_progressive(
+                ts, desc, baked, width, height, 1, device=dev))
+            emit("main_path_instanced_profile", scene=tag, accumulations=1,
+                 card=smi, device_busy_share_of_timed_wall=(
+                     prof["device_busy_ms"] * 1e-3 * accums / wall), **prof)
+
+        route = "pre" if not inst_word else "inst"
+        b6_name = ("rays moved to mesh space in PyTorch" if route == "pre"
+                   else "instance word")
+        b7_name = ("mesh space, rows rotated in PyTorch" if route == "pre"
+                   else "instance word")
+        kernels += [
+            entry(f"B4 packet_traverse (two-level, {b4_mode}; {tag})",
+                  "packet.cu", "lupinpathtracer_tpu/kernels/pallas_packet.py:1011",
+                  launches["packet_traverse"], *meas["b4_" + b4_mode]),
+            entry(f"B5 top_traverse ({tag})", "bvh.cu",
+                  "lupinpathtracer_tpu/kernels/pallas_bvh.py:344", launches["top_traverse"],
+                  *meas["b5"]),
+            entry(f"B6 pair_intersect ({b6_name}; {tag})", "pair_kernel.cuh",
+                  "lupinpathtracer_tpu/kernels/pallas_bvh.py:665", launches["pair_intersect"],
+                  *meas["b6_" + route]),
+            entry(f"B7 attr_fetch ({b7_name}; {tag})", "bvh.cu",
+                  "lupinpathtracer_tpu/kernels/pallas_bvh.py:896", launches["attr_fetch"],
+                  *meas["b7_" + route]),
+        ]
+        other = "inst" if route == "pre" else "pre"
+        other_b4 = "resident" if b4_mode == "stream" else "stream"
+        off = ("b4_" + other_b4, "b6_" + other, "b7_" + other)
+        emit("two_level_off_route_times", scene=tag, card=smi, ms={
+            key: meas[key][1] for key in off},
+             bound_ms={key: meas[key][3][0] for key in off},
+             timed_by={key: meas[key][4] for key in off})
+    return kernels, state
+
+
+# f32 operations per ray/triangle test of each B6' variant: V1 and V3 trade
+# the divide and three products for det^2, rsqrt, a product, a negation,
+# three sign products and two subtractions; V5 keeps the four dot products
+# and one min.
+VARIANT_OPS = {"V0": PAIR_OPS, "V1": 85, "V2": PAIR_OPS, "V3": 85,
+               "V4": PAIR_OPS, "V5": 77, "GRID": 0}
+
+
+def prof_pair_phase(states, smi, reps=5):
+    """B6': the pair-kernel variants on the round-1 state of each camera
+    batch in `states` ({name: (scene, ro, rd, W, eps)}). V0 and V4 must
+    equal B6 bit for bit and each variant its plain version on what it
+    returns. Returns one kernel entry per variant and state."""
+
+    from lupinpathtracer_tpu_torch.kernels import bvh
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+    from lupinpathtracer_tpu_torch.tools import prof_pair
+
+    entries = []
+    for name, (scene, ro, rd, W, eps) in states.items():
+        args, kw, info = prof_pair.round1_state(scene, ro, rd)
+        pairs, items, SP = int(info["n_real"]), int(kw["n_items"]), scene.sl_stride
+        msl_used = int(torch.unique(args[1][:items]).numel())
+        b6 = bvh.pair_intersect(*args, W, eps, **kw)
+        reset(bvh.LAUNCHES)
+        timed = prof_pair.time_variants(args, W, eps, kw, reps)
+        assert bvh.LAUNCHES["pair_intersect_variant"] == len(timed) * (reps + 1)
+        assert bvh.LAUNCHES["pair_intersect"] == 0
+        report = {}
+        for variant, (ms, k, by) in timed.items():
+            pargs = args if variant != "GRID" else (*args[:3], args[2], *args[4:])
+            p_ms, p = plain_ms(lambda: bvh.pair_intersect_plain(
+                *pargs, W, eps, variant="V0" if variant == "GRID" else variant,
+                **kw))
+            # The error is read from the outputs (t, u, v, det).
+            if variant in ("V1", "V3"):
+                err = compare_hits(k, p, dk.F32_MAX)["max_abs_err"]
+            else:
+                err = max(float((a - b).abs().max()) for a, b in zip(k[:4], p[:4]))
+                assert all(bool(torch.equal(a, b)) for a, b in zip(k, p)), variant
+            if variant in ("V0", "V4"):
+                assert all(bool(torch.equal(a, b)) for a, b in zip(k, b6)), variant
+            if variant == "V2":
+                assert torch.equal(k[0], b6[0]) and torch.equal(k[4], b6[4])
+            if variant == "GRID":
+                assert bool((k[0] == dk.F32_MAX).all())
+            live = variant != "GRID"
+            bnd = bound_ms(pairs * SP * VARIANT_OPS[variant],
+                           items * 16 + (pairs * (24 + 20)
+                                         + msl_used * SP * 160 if live else 0))
+            report[variant] = ms
+            entries.append(entry(
+                f"B6' pair variant {variant} ({name} round 1)",
+                "pair_variants.cu" if variant not in ("V0", "GRID")
+                else "pair_kernel.cuh", "tools/prof_pair.py:276", reps + 1,
+                err, ms, p_ms, bnd, by))
+        emit("prof_pair", state=name, pairs=pairs, items=items, stride=SP,
+             mesh_superleaves=msl_used, reps=reps, ms=report,
+             v0_equals_b6=True, card=smi)
+    return entries
 
 
 def main() -> int:
@@ -652,11 +1043,11 @@ def main() -> int:
     R_wf = torch.cat([R_cam, intersect.ray_features(
         V3(*torch.tensor(o.T, dtype=torch.float32, device=dev)),
         V3(*torch.tensor(d.T, dtype=torch.float32, device=dev)))])
-    t_b1, k = kernel_ms(lambda: dk.dense_closest_hit(W, R_main, eps),
+    t_b1, k, by1 = kernel_ms(lambda: dk.dense_closest_hit(W, R_main, eps),
                         "dense_hit_kernel", 20)
     p_b1, p = cuda_ms(lambda: dk.dense_closest_hit_plain(W, R_main, eps), 3)
     res_b1 = compare_hits(k, p, dk.F32_MAX)
-    t_b2, k = kernel_ms(
+    t_b2, k, by2 = kernel_ms(
         lambda: dk.dense_closest_hit_attrs(W, scene.wt_attr, R_wf, eps),
         "dense_hit_kernel", 20)
     p_b2, p = cuda_ms(lambda: dk.dense_closest_hit_attrs_plain(W, A, R_wf, eps), 3)
@@ -664,7 +1055,7 @@ def main() -> int:
     pix = gy * 512 + gx
     b3_args = (pix, gx, gy, (512.0, 512.0), cam, False, 0, 0, 64,
                int(lt.PathtraceType.STANDARD), 8, 100.0)
-    t_b3, (acc_k, nt) = kernel_ms(
+    t_b3, (acc_k, nt), by3 = kernel_ms(
         lambda: mega.mega_pathtrace_spp(scene, W, *b3_args, eps),
         "mega_kernel", 3)
     ctx = integrators.make_ctx(scene, eps)
@@ -685,32 +1076,32 @@ def main() -> int:
     # this bound is a lower one.
     bnd_b3 = bound_ms(segs * (T * PAIR_OPS + Tl * 60), B * 12 + B * 16 + T * 416)
     kernels = [
-        dict(name="B1 dense_closest_hit", route="cuda",
-             source="lupinpathtracer_tpu_torch/csrc/dense_intersect.cu",
-             replaces="lupinpathtracer_tpu/kernels/pallas_intersect.py:361",
-             launches=launches_b1, max_abs_err=res_b1["max_abs_err"],
-             ms=t_b1, plain_ms=p_b1,
-             bound_ms=bnd_b1[0], bound_by=bnd_b1[1], library_ms=None),
-        dict(name="B2 dense_closest_hit_attrs", route="cuda",
-             source="lupinpathtracer_tpu_torch/csrc/dense_intersect.cu",
-             replaces="lupinpathtracer_tpu/kernels/pallas_intersect.py:298",
-             launches=launches_b2, max_abs_err=res_b2["max_abs_err"],
-             ms=t_b2, plain_ms=p_b2,
-             bound_ms=bnd_b2[0], bound_by=bnd_b2[1], library_ms=None),
-        dict(name="B3 mega_pathtrace_spp", route="cuda",
-             source="lupinpathtracer_tpu_torch/csrc/mega.cu",
-             replaces="lupinpathtracer_tpu/kernels/pallas_mega.py:622",
-             launches=launches_b3, max_abs_err=res_b3["acc_max_abs_err"],
-             ms=t_b3, plain_ms=p_b3,
-             bound_ms=bnd_b3[0], bound_by=bnd_b3[1], library_ms=None),
+        entry("B1 dense_closest_hit", "dense_intersect.cu",
+              "lupinpathtracer_tpu/kernels/pallas_intersect.py:361", launches_b1,
+              res_b1["max_abs_err"], t_b1, p_b1, bnd_b1, by1),
+        entry("B2 dense_closest_hit_attrs", "dense_intersect.cu",
+              "lupinpathtracer_tpu/kernels/pallas_intersect.py:298", launches_b2,
+              res_b2["max_abs_err"], t_b2, p_b2, bnd_b2, by2),
+        entry("B3 mega_pathtrace_spp", "mega.cu",
+              "lupinpathtracer_tpu/kernels/pallas_mega.py:622", launches_b3,
+              res_b3["acc_max_abs_err"], t_b3, p_b3, bnd_b3, by3),
     ]
     emit("timing_shapes", b1_rays=B, b2_rays=Bw, tris=T, b3_pixels=B, b3_spp=64,
          b3_segments=segs, main_path_rays=rays_main, card=smi,
          total_s=time.perf_counter() - t_start)
 
     # -- 7-10. the BVH route -----------------------------------------------
-    kernels += bvh_phases(dev, smi, scene, cams)
-    emit("done", total_s=time.perf_counter() - t_start)
+    bvh_kernels, terrain_state = bvh_phases(dev, smi, scene, cams)
+    emit("bvh_phases_done", total_s=time.perf_counter() - t_start)
+
+    # -- 11-13. the two-level route, then the B6' variants on both states ----
+    inst_kernels, field_state = instanced_phases(dev, smi)
+    emit("instanced_phases_done", total_s=time.perf_counter() - t_start)
+    kernels += bvh_kernels + inst_kernels + prof_pair_phase(
+        {"terrain2M": terrain_state, "instanced100k": field_state}, smi)
+    emit("done", total_s=time.perf_counter() - t_start,
+         kernels_timed_by_events_not_device_records=[
+             k["name"] for k in kernels if k["timed_by"] != "device_records"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

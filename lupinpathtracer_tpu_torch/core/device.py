@@ -20,3 +20,14 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """Where a kernel wrapper runs for tensor t: True on the CPU (the plain
+    PyTorch version), False on a CUDA device (the kernel). Any other device
+    raises: the plain version serves CPU tensors only."""
+
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {t.device}")
+    return kind == "cpu"

@@ -20,26 +20,18 @@
 // The demand histogram is built in shared memory with atomics and flushed
 // once per block.
 //
-// B6. What bounds it: operations. Each (ray, superleaf) pair costs SP
-// triangles x four 10-term dot products plus the epilogue (~81 f32
-// operations each); bytes are the sorted rays in, the hit records out and
-// each item's (4, 10, SP) coefficient slice (655 KB at SP = 4096, read from
-// L2/HBM once per item). Design: one block per work item, one thread per
-// lane of its PB-ray block; the block streams the slice through shared
-// memory in TCHUNK-triangle stages (too large for one block's 227 KB) and
-// every thread keeps its best hit in registers with a strict <, so the
-// lowest local index wins a tie (pallas_bvh.py:499). Lanes outside
-// [lo, hi) compute nothing and write nothing: items sharing a block write
-// disjoint lanes and may run in any order. Items past the valid count
-// (read from device memory, no host sync) and items with lo == hi return
-// at once. Plain f32 throughout: the TPU's bf16 3-pass product and its
-// winner recompute (pallas_bvh.py:471-542) are not needed.
+// B6. The kernel, its bound and its design are in pair_kernel.cuh, shared
+// with the ablation variants of pair_variants.cu; this file instantiates
+// the shipped one (V0, 256-triangle stages).
 //
 // B7. What bounds it: bytes (one 512-byte attribute row read and 64 or 96
 // bytes written per winner). Design: one block per work item, one thread
 // per covered lane, a direct load of the winner's row (the TPU's one-hot
 // gather) and the interpolation of _attr_kernel (pallas_bvh.py:750-786).
-// Single-level items only: rows stay unrotated and keep mat_id.
+// With an instance word per item (two-level scenes, pallas_bvh.py:788-825)
+// the row is rotated by the instance's normal matrix and takes its material
+// override (bvh_common.cuh::write_rows); without one the rows stay in mesh
+// space and keep mat_id.
 //
 // Numerics match the plain PyTorch versions (kernels/bvh.py): built with
 // -fmad=false and no fast-math; min/max propagate NaN like jnp/torch.
@@ -47,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "bvh_common.cuh"
+#include "pair_kernel.cuh"
 
 namespace {
 
@@ -57,7 +50,6 @@ constexpr int TOP_COLS = TOP_FAN * CH_STRIDE;
 constexpr int CH_ISLEAF = 6, CH_H2 = 7, CH_HI8 = 8, CH_LO8 = 9;
 constexpr int HIST_MAX = 4096;
 constexpr int TOP_THREADS = 128;
-constexpr int TCHUNK = 256;  // triangles per shared-memory stage (40 KB)
 
 __global__ void __launch_bounds__(TOP_THREADS)
 top_kernel(const float* __restrict__ tab, const float* __restrict__ rox,
@@ -150,89 +142,6 @@ top_kernel(const float* __restrict__ tab, const float* __restrict__ rox,
     if (shist[i] != 0) atomicAdd(&hist[i], shist[i]);
 }
 
-__global__ void pair_kernel(const int* __restrict__ blk,
-                            const int* __restrict__ msl,
-                            const int* __restrict__ lo,
-                            const int* __restrict__ hi,
-                            const int* __restrict__ n_items,
-                            const float* __restrict__ rox,
-                            const float* __restrict__ roy,
-                            const float* __restrict__ roz,
-                            const float* __restrict__ rdx,
-                            const float* __restrict__ rdy,
-                            const float* __restrict__ rdz,
-                            const float* __restrict__ W, long long T, int SP,
-                            int PB, int P, float eps, float* __restrict__ t_out,
-                            float* __restrict__ u_out,
-                            float* __restrict__ v_out,
-                            float* __restrict__ det_out,
-                            int* __restrict__ li_out) {
-  __shared__ float sw[4 * 10 * TCHUNK];
-  const int k = blockIdx.x;
-  if (k >= *n_items) return;
-  const int l = lo[k], h = hi[k];
-  if (h <= l) return;  // uniform over the block
-  const int pos = blk[k] * PB + threadIdx.x;
-  const bool live = pos >= l && pos < h && pos < P;
-
-  float r[10];
-  if (live) {
-    const float ox = rox[pos], oy = roy[pos], oz = roz[pos];
-    const float dx = rdx[pos], dy = rdy[pos], dz = rdz[pos];
-    r[0] = dx; r[1] = dy; r[2] = dz;
-    r[3] = oy * dz - oz * dy;
-    r[4] = oz * dx - ox * dz;
-    r[5] = ox * dy - oy * dx;
-    r[6] = ox; r[7] = oy; r[8] = oz; r[9] = 1.0f;
-  }
-  const float* Ws = W + (size_t)msl[k] * SP;
-  float bt = F32_MAX, bu = 0.0f, bv = 0.0f, bdet = 0.0f;
-  int bidx = 0;
-  for (int base = 0; base < SP; base += TCHUNK) {
-    const int n = min(TCHUNK, SP - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < 40 * n; i += blockDim.x) {
-      const int row = i / n;  // c * 10 + k
-      const int j = i - row * n;
-      sw[row * TCHUNK + j] = Ws[(size_t)row * T + base + j];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      float m[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float* w = sw + c * 10 * TCHUNK + j;
-        float acc = r[0] * w[0];
-#pragma unroll
-        for (int q = 1; q < 10; ++q) acc = acc + r[q] * w[q * TCHUNK];
-        m[c] = acc;
-      }
-      const float det = m[0];
-      const float d = 1.0f / det;
-      const float t = m[3] * d;
-      const float u = m[1] * d;
-      const float v = m[2] * d;
-      const bool valid =
-          (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= eps);
-      const float tt = valid ? t : F32_MAX;
-      if (tt < bt) {
-        bt = tt;
-        bu = u;
-        bv = v;
-        bdet = det;
-        bidx = base + j;
-      }
-    }
-  }
-  if (!live) return;
-  t_out[pos] = bt;
-  u_out[pos] = bu;
-  v_out[pos] = bv;
-  det_out[pos] = bdet;
-  li_out[pos] = bidx;
-}
-
 __global__ void attr_kernel(const int* __restrict__ blk,
                             const int* __restrict__ msl,
                             const int* __restrict__ lo,
@@ -241,14 +150,23 @@ __global__ void attr_kernel(const int* __restrict__ blk,
                             const int* __restrict__ li,
                             const float* __restrict__ hu,
                             const float* __restrict__ hv,
-                            const float* __restrict__ A, int SP, int aw,
+                            const float* __restrict__ A,
+                            const int* __restrict__ inst,
+                            const float* __restrict__ nrm,
+                            const int* __restrict__ ovr, int SP, int aw,
                             int PB, int P, int awout, float* __restrict__ out) {
   const int k = blockIdx.x;
   if (k >= *n_items) return;
   const int pos = blk[k] * PB + threadIdx.x;
   if (pos < lo[k] || pos >= hi[k] || pos >= P) return;
   const float* a = A + ((size_t)msl[k] * SP + li[pos]) * aw;
-  write_rows(a, hu[pos], hv[pos], awout, out + pos, (size_t)P);
+  const float* nm = nullptr;
+  int o = -1;
+  if (inst != nullptr) {
+    nm = nrm + (size_t)inst[k] * 9;
+    o = ovr[inst[k]];
+  }
+  write_rows(a, hu[pos], hv[pos], awout, out + pos, (size_t)P, nm, o);
 }
 
 }  // namespace
@@ -274,11 +192,13 @@ extern "C" int lupin_top_traverse(const float* tab, const float* rox,
 }
 
 // Work items blk/msl/lo/hi (n_cap,), n_items (1,) on the device; sorted
-// rays (P,); W (4, 10, T). Outputs (P,), prefilled with a miss by the
-// caller. One block of PB threads per item.
+// rays (P,); W (4, 10, T); inst (n_cap,) with txf (n_inst, 12), or both
+// null. Outputs (P,), prefilled with a miss by the caller. One block of PB
+// threads per item.
 extern "C" int lupin_pair_intersect(const int* blk, const int* msl,
                                     const int* lo, const int* hi,
-                                    const int* n_items, const float* rox,
+                                    const int* n_items, const int* inst,
+                                    const float* txf, const float* rox,
                                     const float* roy, const float* roz,
                                     const float* rdx, const float* rdy,
                                     const float* rdz, const float* W,
@@ -286,25 +206,29 @@ extern "C" int lupin_pair_intersect(const int* blk, const int* msl,
                                     int P, float eps, float* t, float* u,
                                     float* v, float* det, int* li,
                                     void* stream) {
-  if (PB < 1 || PB > 1024) return (int)cudaErrorInvalidValue;
-  if (n_cap == 0) return (int)cudaGetLastError();
-  pair_kernel<<<n_cap, PB, 0, (cudaStream_t)stream>>>(
-      blk, msl, lo, hi, n_items, rox, roy, roz, rdx, rdy, rdz, W, T, SP, PB, P,
-      eps, t, u, v, det, li);
-  return (int)cudaGetLastError();
+  const PairArgs a{blk, msl, lo,  hi, n_items, inst, txf, rox, roy,
+                   roz, rdx, rdy, rdz, W,      T,    n_cap, SP, PB,
+                   P,   eps, t,   u,   v,      det,  li};
+  return launch_pair<PAIR_V0, PAIR_TC>(a, stream);
 }
 
-// Items as above; li/hu/hv (P,); A (n_msl, SP, aw). out (awout, P),
-// zeroed by the caller.
+// Items as above; li/hu/hv (P,); A (n_msl, SP, aw); inst (n_cap,) with nrm
+// (n_inst, 9) and ovr (n_inst,), or all three null. out (awout, P), zeroed
+// by the caller.
 extern "C" int lupin_attr_fetch(const int* blk, const int* msl, const int* lo,
                                 const int* hi, const int* n_items,
                                 const int* li, const float* hu,
-                                const float* hv, const float* A, int n_cap,
-                                int SP, int aw, int PB, int P, int awout,
-                                float* out, void* stream) {
+                                const float* hv, const float* A,
+                                const int* inst, const float* nrm,
+                                const int* ovr, int n_cap, int SP, int aw,
+                                int PB, int P, int awout, float* out,
+                                void* stream) {
   if (PB < 1 || PB > 1024) return (int)cudaErrorInvalidValue;
+  if ((inst == nullptr) != (nrm == nullptr) || (inst == nullptr) != (ovr == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (n_cap == 0) return (int)cudaGetLastError();
   attr_kernel<<<n_cap, PB, 0, (cudaStream_t)stream>>>(
-      blk, msl, lo, hi, n_items, li, hu, hv, A, SP, aw, PB, P, awout, out);
+      blk, msl, lo, hi, n_items, li, hu, hv, A, inst, nrm, ovr, SP, aw, PB, P,
+      awout, out);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 // Device helpers shared by B4 (packet.cu) and B5-B7 (bvh.cu): the slab test
 // with NaN-propagating min/max, and the IA_* rows of one BVH hit -- the
-// winner's packed attribute row interpolated at its barycentrics, as
-// lupinpathtracer_tpu/kernels/pallas_bvh.py::_attr_kernel (:750-786) and
+// winner's packed attribute row interpolated at its barycentrics and, for
+// two-level items, rotated by the instance normal matrix, as
+// lupinpathtracer_tpu/kernels/pallas_bvh.py::_attr_kernel (:750-825) and
 // pallas_packet.py::_attr_phase (:784-809) compute them. The plain versions
-// are kernels/bvh.slab and kernels/bvh.interp_rows.
+// are kernels/bvh.slab, kernels/bvh.interp_rows and
+// kernels/bvh.rotate_rows.
 
 #pragma once
 
@@ -41,19 +43,54 @@ __device__ __forceinline__ float interp(const float* a, int s0, int s1, int s2,
   return a[s0 + c] * hw + a[s1 + c] * hu + a[s2 + c] * hv;
 }
 
+// v <- M v for a row-major 3x3 M, each component summed left to right.
+__device__ __forceinline__ void rot3(const float* m, float v[3]) {
+  const float x = v[0], y = v[1], z = v[2];
+  v[0] = m[0] * x + m[1] * y + m[2] * z;
+  v[1] = m[3] * x + m[4] * y + m[5] * z;
+  v[2] = m[6] * x + m[7] * y + m[8] * z;
+}
+
 // Writes awout (16 or 24) rows, row r at out[r * stride]; a == nullptr
-// writes zeros (a miss).
+// writes zeros (a miss). Two-level items (pallas_bvh.py:788-825) pass the
+// winner's instance normal matrix nm (9 floats) and material override ovr:
+// the normals and tangent frame are rotated, the geometric normal is
+// renormalised and mat_id becomes ovr, both only where ovr >= 0.
 __device__ __forceinline__ void write_rows(const float* a, float hu, float hv,
                                            int awout, float* out,
-                                           size_t stride) {
+                                           size_t stride,
+                                           const float* nm = nullptr,
+                                           int ovr = -1) {
   if (a == nullptr) {
     for (int r = 0; r < awout; ++r) out[(size_t)r * stride] = 0.0f;
     return;
   }
   const float hw = 1.0f - hu - hv;
+  float n[3], gn[3], tn[3] = {0.0f, 0.0f, 0.0f}, bt[3] = {0.0f, 0.0f, 0.0f};
   for (int c = 0; c < 3; ++c) {
-    out[(size_t)(0 + c) * stride] = interp(a, A_N0, A_N1, A_N2, c, hw, hu, hv);
-    out[(size_t)(3 + c) * stride] = a[A_GN + c];
+    n[c] = interp(a, A_N0, A_N1, A_N2, c, hw, hu, hv);
+    gn[c] = a[A_GN + c];
+    if (awout >= 24) {
+      tn[c] = a[A_TAN + c];
+      bt[c] = a[A_BIT + c];
+    }
+  }
+  if (nm != nullptr) {
+    rot3(nm, n);
+    rot3(nm, gn);
+    if (ovr >= 0) {
+      const float l2 = gn[0] * gn[0] + gn[1] * gn[1] + gn[2] * gn[2];
+      const float inv = 1.0f / sqrtf(nmax(l2, 1e-30f));
+      for (int c = 0; c < 3; ++c) gn[c] = gn[c] * inv;
+    }
+    if (awout >= 24) {
+      rot3(nm, tn);
+      rot3(nm, bt);
+    }
+  }
+  for (int c = 0; c < 3; ++c) {
+    out[(size_t)(0 + c) * stride] = n[c];
+    out[(size_t)(3 + c) * stride] = gn[c];
     out[(size_t)(9 + c) * stride] = interp(a, A_C0, A_C1, A_C2, c, hw, hu, hv);
   }
   out[6 * stride] = interp(a, A_UV0, A_UV1, A_UV2, 0, hw, hu, hv);
@@ -61,12 +98,12 @@ __device__ __forceinline__ void write_rows(const float* a, float hu, float hv,
   out[8 * stride] = a[A_HAS_UV];
   out[12 * stride] = interp(a, A_C0, A_C1, A_C2, 3, hw, hu, hv);
   out[13 * stride] = a[A_DET_SIGN];
-  out[14 * stride] = a[A_MAT_ID];
+  out[14 * stride] = ovr >= 0 ? (float)ovr : a[A_MAT_ID];
   out[15 * stride] = 0.0f;
   if (awout >= 24) {
     for (int c = 0; c < 3; ++c) {
-      out[(size_t)(16 + c) * stride] = a[A_TAN + c];
-      out[(size_t)(19 + c) * stride] = a[A_BIT + c];
+      out[(size_t)(16 + c) * stride] = tn[c];
+      out[(size_t)(19 + c) * stride] = bt[c];
     }
     out[22 * stride] = 0.0f;
     out[23 * stride] = 0.0f;

@@ -27,6 +27,18 @@
 // directly (the TPU's one-hot fetch was a gather) and interpolates it as
 // _attr_phase does (bvh_common.cuh).
 //
+// Two-level scenes (pallas_packet.py:405-467): a leaf id is a global
+// (instance x mesh superleaf) id. At a leaf pop the ray moves to mesh space
+// by the instance's 12 inverse-transform scalars (direction not normalised,
+// so t stays world-scaled and the world-space best t prunes the mesh-space
+// sub-chunk boxes), the sub-chunk boxes and coefficients are those of the
+// mesh superleaf, and the winner is gref * SP + lane. MODE 1 reads the mesh
+// superleaf and instance of a leaf from the gsl_msl / gsl_inst tables and
+// the transform from inst_inv (the TPU's SMEM-resident mode); MODE 2 reads
+// one 64-byte gsl_meta row [msl, inst, inst_inv(12), 0, 0] per leaf visit
+// (the TPU's TL_STREAM mode, for tables too large for its SMEM). Both give
+// the same results; the split follows the JAX package's routing.
+//
 // Numerics match the plain version (kernels/packet.py) bit for bit: built
 // with -fmad=false and no fast-math, dot products summed in order k = 0..9,
 // IEEE division, min/max that propagate NaN. Plain f32 throughout: the
@@ -51,6 +63,9 @@ __device__ __forceinline__ bool box_hit(const float o[3], const float iv[3],
   return far >= near && far > 0.0f && near < bt && g[6] > -0.5f;
 }
 
+// MODE 0: single-level; 1: two-level, resident tables; 2: two-level,
+// streamed gsl_meta rows.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 packet_kernel(const float* __restrict__ geo, const int* __restrict__ refs,
               const float* __restrict__ sub, const float* __restrict__ rox,
@@ -59,7 +74,10 @@ packet_kernel(const float* __restrict__ geo, const int* __restrict__ refs,
               const float* __restrict__ rdz, const int* __restrict__ active,
               const float* __restrict__ W, long long T, int SP, int nsub,
               int SM, int B, float eps, const float* __restrict__ A, int aw,
-              int awout, int* __restrict__ stack, float* __restrict__ t_out,
+              int awout, const int* __restrict__ gmsl,
+              const int* __restrict__ ginst, const float* __restrict__ txf,
+              const float* __restrict__ gmeta, int meta_cols,
+              int* __restrict__ stack, float* __restrict__ t_out,
               float* __restrict__ u_out, float* __restrict__ v_out,
               float* __restrict__ det_out, int* __restrict__ tri_out,
               float* __restrict__ ia_out) {
@@ -91,23 +109,58 @@ packet_kernel(const float* __restrict__ geo, const int* __restrict__ refs,
       }
       continue;
     }
-    // Leaf: sub-chunk boxes against the best t at the pop.
-    const float* sb = sub + (size_t)ref * nsub * 8;
+    // Leaf: the ray frame of the leaf's mesh space (two-level), then the
+    // sub-chunk boxes against the best t at the pop.
+    int wref = ref;
+    float rl[10], ol[3], ivl[3];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) rl[k] = r[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      ol[k] = o[k];
+      ivl[k] = iv[k];
+    }
+    if constexpr (MODE != 0) {
+      const float* m;
+      if constexpr (MODE == 2) {
+        const float* row = gmeta + (size_t)ref * meta_cols;
+        wref = (int)row[0];
+        m = row + 2;
+      } else {
+        wref = gmsl[ref];
+        m = txf + (size_t)ginst[ref] * 12;
+      }
+      const float lx = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+      const float ly = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+      const float lz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+      const float ex = m[0] * dx + m[1] * dy + m[2] * dz;
+      const float ey = m[4] * dx + m[5] * dy + m[6] * dz;
+      const float ez = m[8] * dx + m[9] * dy + m[10] * dz;
+      rl[0] = ex; rl[1] = ey; rl[2] = ez;
+      rl[3] = ly * ez - lz * ey;
+      rl[4] = lz * ex - lx * ez;
+      rl[5] = lx * ey - ly * ex;
+      rl[6] = lx; rl[7] = ly; rl[8] = lz;
+      ol[0] = lx; ol[1] = ly; ol[2] = lz;
+      ivl[0] = 1.0f / ex; ivl[1] = 1.0f / ey; ivl[2] = 1.0f / ez;
+    }
+    const float* sb = sub + (size_t)wref * nsub * 8;
     unsigned bits = 0;
     for (int s = 0; s < nsub; ++s)
-      if (box_hit(o, iv, sb + s * 8, bt)) bits |= 1u << s;
+      if (box_hit(ol, ivl, sb + s * 8, bt)) bits |= 1u << s;
     for (int s = 0; s < nsub; ++s) {
       if (!((bits >> s) & 1u)) continue;
-      const long long base = (long long)ref * SP + (long long)s * spb;
+      const long long lane0 = (long long)s * spb;
+      const long long base = (long long)wref * SP + lane0;
       for (int j = 0; j < spb; ++j) {
         const float* w = W + base + j;
         float m[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const float* wc = w + (size_t)c * 10 * T;
-          float acc = r[0] * wc[0];
+          float acc = rl[0] * wc[0];
 #pragma unroll
-          for (int k = 1; k < 10; ++k) acc = acc + r[k] * wc[(size_t)k * T];
+          for (int k = 1; k < 10; ++k) acc = acc + rl[k] * wc[(size_t)k * T];
           m[c] = acc;
         }
         const float det = m[0];
@@ -123,7 +176,7 @@ packet_kernel(const float* __restrict__ geo, const int* __restrict__ refs,
           bu = u;
           bv = v;
           bd = det;
-          bi = (int)(base + j);
+          bi = (int)((long long)ref * SP + lane0 + j);
         }
       }
     }
@@ -143,20 +196,34 @@ packet_kernel(const float* __restrict__ geo, const int* __restrict__ refs,
 
 // geo (rows, 8, 8) f32, refs (rows, 8) i32, sub (n_msl, nsub, 8) f32;
 // rays (B,) f32, active (B,) i32; W (4, 10, T); A (T', aw) or unused when
-// awout = 0. stack is (SM, B) i32 scratch. Outputs t/u/v/det (B,) f32,
-// tri (B,) i32, ia (awout, B) f32. Returns cudaGetLastError().
+// awout = 0. mode 1: gmsl/ginst (n_gsl,) i32 and txf (n_inst, 12) f32;
+// mode 2: gmeta (n_gsl, meta_cols) f32; unused tables may be null. stack is
+// (SM, B) i32 scratch. Outputs t/u/v/det (B,) f32, tri (B,) i32, ia
+// (awout, B) f32. Returns cudaGetLastError().
 extern "C" int lupin_packet_traverse(
     const float* geo, const int* refs, const float* sub, const float* rox,
     const float* roy, const float* roz, const float* rdx, const float* rdy,
     const float* rdz, const int* active, const float* W, long long T, int SP,
     int nsub, int SM, int B, float eps, const float* A, int aw,
-    int awout, int* stack, float* t, float* u, float* v, float* det, int* tri,
-    float* ia, void* stream) {
+    int awout, int mode, const int* gmsl, const int* ginst, const float* txf,
+    const float* gmeta, int meta_cols, int* stack, float* t, float* u,
+    float* v, float* det, int* tri, float* ia, void* stream) {
   if (nsub < 1 || nsub > 32 || SP % nsub != 0)
     return (int)cudaErrorInvalidValue;
+  if (mode < 0 || mode > 2 || (mode != 0 && awout != 0) ||
+      (mode == 1 && (gmsl == nullptr || ginst == nullptr || txf == nullptr)) ||
+      (mode == 2 && (gmeta == nullptr || meta_cols < 14)))
+    return (int)cudaErrorInvalidValue;
   const int blocks = (B + THREADS - 1) / THREADS;
-  packet_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      geo, refs, sub, rox, roy, roz, rdx, rdy, rdz, active, W, T, SP, nsub, SM,
-      B, eps, A, aw, awout, stack, t, u, v, det, tri, ia);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define LUPIN_PACKET_LAUNCH(MODE)                                            \
+  packet_kernel<MODE><<<blocks, THREADS, 0, st>>>(                           \
+      geo, refs, sub, rox, roy, roz, rdx, rdy, rdz, active, W, T, SP, nsub,  \
+      SM, B, eps, A, aw, awout, gmsl, ginst, txf, gmeta, meta_cols, stack, t, \
+      u, v, det, tri, ia)
+  if (mode == 0) LUPIN_PACKET_LAUNCH(0);
+  else if (mode == 1) LUPIN_PACKET_LAUNCH(1);
+  else LUPIN_PACKET_LAUNCH(2);
+#undef LUPIN_PACKET_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -8,15 +8,22 @@ The counterpart of lupinpathtracer_tpu/kernels/pallas_bvh.py:
   superleaf ids near to far, plus the per-superleaf demand histogram and
   the per-ray AABB-test count.
 - B6 `pair_intersect` (`_pair_kernel`, :665): closest hit of superleaf-sorted
-  rays against their work item's superleaf, local triangle index out.
+  rays against their work item's superleaf, local triangle index out; with
+  an instance word per item (two-level scenes) the item's rays first move
+  to mesh space.
+- B6' `pair_intersect_variant`: the ablation variants of B6
+  (tools/prof_pair.py:276 of the JAX repo, `run_variant`), for
+  tools/prof_pair.py of this package.
 - B7 `attr_fetch` (`_attr_kernel`, :896): the winner's attribute row,
-  interpolated at the hit barycentrics into the compact IA_* rows.
+  interpolated at the hit barycentrics into the compact IA_* rows; with an
+  instance word per item, rotated by the instance's normal matrix and given
+  its material override.
 
 The orchestration (rounds, sorts, work items, per-ray min) lives in
 kernels/intersect.py. On a CUDA tensor each wrapper launches its kernel from
-csrc/bvh.cu or raises; on a CPU tensor it runs the plain PyTorch version
-below, which performs the same f32 arithmetic in the same order (B5 and B7
-exactly; B6 with the dense kernel's plain version per superleaf segment).
+csrc/bvh.cu (csrc/pair_variants.cu for B6') or raises; on a CPU tensor it
+runs the plain PyTorch version below, which performs the same f32
+arithmetic in the same order.
 
 Work items (blk, sl, lo, hi) are as in the JAX package: item k covers the
 sorted positions [lo, hi) that fall inside ray block blk (PB lanes), all
@@ -41,6 +48,7 @@ from ..accel.superleaf import (
     TOP_COLS,
     TOP_FAN,
 )
+from ..core.device import on_cpu
 from . import dense_intersect as dk
 
 F32_MAX = dk.F32_MAX
@@ -74,13 +82,20 @@ SORT_NET = (
     (1, 2), (3, 4), (5, 6),
 )
 
-TWO_LEVEL_TODO = (
-    "two-level (instanced) BVH scenes are not ported yet: ROADMAP.md "
-    "Queue A item 9"
-)
+# B6' variants (csrc/pair_kernel.cuh). V4 differs from V0 only in the
+# kernel's shared-memory tile, so its plain version is V0's.
+PAIR_VARIANTS = ("V0", "V1", "V2", "V3", "V4", "V5")
 
 # Kernel launches per wrapper (counted only where a kernel is launched).
-LAUNCHES = {"top_traverse": 0, "pair_intersect": 0, "attr_fetch": 0}
+LAUNCHES = {"top_traverse": 0, "pair_intersect": 0, "attr_fetch": 0,
+            "pair_intersect_variant": 0}
+# Of those, the launches with a per-item instance word (two-level scenes
+# whose instance tables the kernels read themselves).
+INST_LAUNCHES = {"pair_intersect": 0, "attr_fetch": 0}
+
+# Ray-triangle pairs per chunk of B6's plain version: bounds its (lanes, SP)
+# temporaries (16 MB each).
+_PLAIN_PAIRS = 1 << 22
 
 
 def stack_depth(scene) -> int:
@@ -203,46 +218,125 @@ def top_traverse_plain(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl,
     return out, cnt, stack_io, sp, cnt_sl, aabb
 
 
-def _item_ranges(blk, lo, hi, n_items, PB):
-    """Host list of (item, first, end) position ranges of the valid items."""
+def _item_lanes(blk, lo, hi, n_items, PB, P):
+    """(pos, item) of every covered sorted position, as the kernels cover
+    them: item k owns the lanes of ray block blk[k] that fall in
+    [lo[k], hi[k]) and below P. Only the first n_items items count (one
+    host sync to read it)."""
 
     n = int(n_items) if n_items is not None else int(blk.shape[0])
-    rows = torch.stack([blk[:n], lo[:n], hi[:n]]).cpu().tolist()
-    out = []
-    for k, (b, l_, h) in enumerate(zip(*rows)):
-        a, e = max(l_, b * PB), min(h, b * PB + PB)
-        if e > a:
-            out.append((k, a, e))
-    return out
+    dev = blk.device
+    b, l_, h = (x[:n].long()[:, None] for x in (blk, lo, hi))
+    pos = b * PB + torch.arange(PB, device=dev)[None, :]
+    live = (pos >= l_) & (pos < h) & (pos < P)
+    item = torch.arange(n, device=dev)[:, None].expand_as(pos)
+    return pos[live], item[live]
+
+
+def mesh_space(m12, ro, rd):
+    """Rays moved to mesh space by (n, 12) inverse-transform rows, one per
+    ray (pallas_bvh.py:430-439): m0*x + m1*y + m2*z + m3 summed left to
+    right; the direction is not normalised, so t stays world-scaled."""
+
+    m = [m12[:, j] for j in range(12)]
+    o = (m[0] * ro[0] + m[1] * ro[1] + m[2] * ro[2] + m[3],
+         m[4] * ro[0] + m[5] * ro[1] + m[6] * ro[2] + m[7],
+         m[8] * ro[0] + m[9] * ro[1] + m[10] * ro[2] + m[11])
+    d = (m[0] * rd[0] + m[1] * rd[1] + m[2] * rd[2],
+         m[4] * rd[0] + m[5] * rd[1] + m[6] * rd[2],
+         m[8] * rd[0] + m[9] * rd[1] + m[10] * rd[2])
+    return o, d
+
+
+def ray_feature_rows(o, d):
+    """R = [d, o x d, o, 1], (n, 10), from component tuples."""
+
+    c = (o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+         o[0] * d[1] - o[1] * d[0])
+    return torch.stack([*d, *c, *o, torch.ones_like(o[0])], dim=-1)
+
+
+def _pair_select(det, nu, nv, nt, eps, variant):
+    """Per-lane winner over the SP triangles of (n, SP) numerators, as the
+    kernel variant selects it: (t, u, v, det, index), the first index on a
+    tie, a miss as (F32_MAX, 0, 0, 0, 0)."""
+
+    if variant == "V5":
+        t = torch.clamp_max(nt.min(dim=1).values, F32_MAX)
+        z = torch.zeros_like(t)
+        return t, z, z, z, torch.zeros_like(t, dtype=torch.int32)
+    if variant in ("V1", "V3"):
+        ad = torch.rsqrt(det * det)
+        t = nt * ad
+        t = torch.where(det < 0.0, -t, t)
+        valid = ((nu * det >= 0.0) & (nv * det >= 0.0)
+                 & ((det - nu - nv) * det >= 0.0) & (t >= eps))
+        tt = torch.where(valid, t, F32_MAX)
+        u = v = None
+    else:
+        tt, u, v = dk.dense_epilogue(det, nu, nv, nt, eps)
+    best = torch.argmin(tt, dim=1, keepdim=True)
+    bt = tt.gather(1, best)[:, 0]
+    hit = bt < F32_MAX
+
+    def pick(x):
+        return x.gather(1, best)[:, 0]
+
+    idx = torch.where(hit, best[:, 0], 0).to(torch.int32)
+    z = torch.zeros_like(bt)
+    if variant in ("V2", "V3"):
+        return torch.where(hit, bt, F32_MAX), z, z, z, idx
+    if variant == "V1":
+        # Exact t, u, v, det of the selected triangle.
+        wdet = pick(det)
+        d = 1.0 / wdet
+        return (torch.where(hit, pick(nt) * d, F32_MAX),
+                torch.where(hit, pick(nu) * d, z),
+                torch.where(hit, pick(nv) * d, z), torch.where(hit, wdet, z), idx)
+    return (torch.where(hit, bt, F32_MAX), torch.where(hit, pick(u), z),
+            torch.where(hit, pick(v), z), torch.where(hit, pick(det), z), idx)
 
 
 def pair_intersect_plain(blk, sl, lo, hi, ro, rd, W4, eps, *, SP,
-                         pair_block=256, n_items=None):
-    """Plain version of B6: each run of positions that share a superleaf
-    goes through the dense closest hit's plain version against that
-    superleaf's (4, 10, SP) slice. Miss lanes: t = F32_MAX, u = v = det = 0,
-    local index 0; uncovered positions keep those values."""
+                         pair_block=256, n_items=None, inst=None,
+                         txf_tab=None, variant="V0"):
+    """Plain version of B6 and of its variants: every covered position
+    against its item's (4, 10, SP) coefficient slice, the four numerators
+    summed in the kernel's order (the dense kernel's plain numerators). Miss lanes: t = F32_MAX, u = v = det = 0,
+    local index 0; uncovered positions keep those values. With inst and
+    txf_tab, an item's rays first move to mesh space by row inst[k] of the
+    (n_inst, 12) inverse transforms."""
 
+    if variant not in PAIR_VARIANTS:
+        raise ValueError(f"unknown pair variant {variant!r}")
+    if (inst is None) != (txf_tab is None):
+        raise ValueError("inst and txf_tab come together")
     P = ro.x.shape[0]
     dev = ro.x.device
     t = torch.full((P,), F32_MAX, dtype=torch.float32, device=dev)
     u, v, det = (torch.zeros(P, dtype=torch.float32, device=dev) for _ in range(3))
     li = torch.zeros(P, dtype=torch.int32, device=dev)
-    c = (ro.y * rd.z - ro.z * rd.y, ro.z * rd.x - ro.x * rd.z,
-         ro.x * rd.y - ro.y * rd.x)
-    R = torch.stack([rd.x, rd.y, rd.z, *c, ro.x, ro.y, ro.z,
-                     torch.ones_like(ro.x)], dim=-1)
-    sl_h = sl.cpu().tolist()
-    runs = []  # merge consecutive ranges of one superleaf
-    for k, a, e in _item_ranges(blk, lo, hi, n_items, pair_block):
-        s = sl_h[k]
-        if runs and runs[-1][0] == s and runs[-1][2] == a:
-            runs[-1][2] = e
-        else:
-            runs.append([s, a, e])
-    for s, a, e in runs:
-        out = dk.dense_closest_hit_plain(W4[:, :, s * SP:(s + 1) * SP], R[a:e], eps)
-        t[a:e], u[a:e], v[a:e], det[a:e], li[a:e] = out
+    pos, item = _item_lanes(blk, lo, hi, n_items, pair_block, P)
+    if pos.numel() == 0:
+        return t, u, v, det, li
+    o, d = tuple(c[pos] for c in ro), tuple(c[pos] for c in rd)
+    if inst is not None:
+        o, d = mesh_space(txf_tab[inst.long()[item]], o, d)
+    R = ray_feature_rows(o, d)
+    # Positions grouped by mesh superleaf: each group against one slice.
+    msl = sl.long()[item]
+    order = torch.argsort(msl, stable=True)
+    ids, counts = torch.unique_consecutive(msl[order], return_counts=True)
+    step = max(1, _PLAIN_PAIRS // SP)
+    first = 0
+    for m, n in zip(ids.tolist(), counts.tolist()):
+        Ws = W4[:, :, m * SP:(m + 1) * SP]
+        for s0 in range(first, first + n, step):
+            sel = order[s0:min(s0 + step, first + n)]
+            out = _pair_select(*dk.dense_numerators(R[sel], Ws), eps, variant)
+            p = pos[sel]
+            t[p], u[p], v[p], det[p], li[p] = out
+        first += n
     return t, u, v, det, li
 
 
@@ -273,23 +367,58 @@ def interp_rows(a, hu, hv, awout):
     return torch.stack(rows, dim=0)
 
 
+def rotate3(nm, x, y, z, renorm=None):
+    """(x, y, z) rotated by the row-major 3x3 rows nm (n, 9), each component
+    summed left to right; where `renorm` (bool, (n,)) the result is scaled to
+    unit length by 1 / sqrt(max(len^2, 1e-30)) (pallas_bvh.py:799-814; the
+    IEEE expression, which the CUDA kernel computes too)."""
+
+    rx = nm[:, 0] * x + nm[:, 1] * y + nm[:, 2] * z
+    ry = nm[:, 3] * x + nm[:, 4] * y + nm[:, 5] * z
+    rz = nm[:, 6] * x + nm[:, 7] * y + nm[:, 8] * z
+    if renorm is not None:
+        inv = 1.0 / torch.sqrt(torch.clamp_min(rx * rx + ry * ry + rz * rz, 1e-30))
+        inv = torch.where(renorm, inv, 1.0)
+        rx, ry, rz = rx * inv, ry * inv, rz * inv
+    return rx, ry, rz
+
+
+def rotate_rows(rows, nm, ovr):
+    """Two-level tail of the attribute rows (pallas_bvh.py:788-825): IA_N,
+    IA_GN and, when present, IA_TAN / IA_BIT of rows (awout, n) rotated by
+    each lane's instance normal matrix nm (n, 9); IA_GN renormalised and
+    IA_MAT_ID replaced by the override ovr (n,) i32, both only where
+    ovr >= 0."""
+
+    rows = list(rows)
+    on = ovr >= 0
+    spans = [(IA_N, None), (IA_GN, on)]
+    if len(rows) >= IA_ROWS_NM:
+        spans += [(IA_TAN, None), (IA_BIT, None)]
+    for sl3, renorm in spans:
+        rows[sl3.start:sl3.stop] = rotate3(nm, *rows[sl3.start:sl3.stop], renorm)
+    rows[IA_MAT_ID] = torch.where(on, ovr.to(torch.float32), rows[IA_MAT_ID])
+    return torch.stack(rows, dim=0)
+
+
 def attr_fetch_plain(blk, sl, lo, hi, li, hu, hv, A3, *, pair_block=256,
-                     with_tangents=False, n_items=None):
-    """Plain version of B7: rows of covered positions, zeros elsewhere.
-    Single-level items only (rows unrotated, mat_id kept)."""
+                     with_tangents=False, n_items=None, inst=None,
+                     nrm_tab=None, ovr_tab=None):
+    """Plain version of B7: rows of covered positions, zeros elsewhere. With
+    inst, nrm_tab (n_inst, 9) and ovr_tab (n_inst,), an item's rows are
+    rotated and overridden by row inst[k] of the tables (rotate_rows)."""
 
     P = li.shape[0]
     awout = IA_ROWS_NM if with_tangents else IA_ROWS
     out = torch.zeros((awout, P), dtype=torch.float32, device=li.device)
-    ranges = _item_ranges(blk, lo, hi, n_items, pair_block)
-    if not ranges:
+    pos, item = _item_lanes(blk, lo, hi, n_items, pair_block, P)
+    if pos.numel() == 0:
         return out
-    sl_h = sl.cpu().tolist()
-    pos = torch.cat([torch.arange(a, e) for _, a, e in ranges]).to(li.device)
-    msl = torch.cat([torch.full((e - a,), sl_h[k], dtype=torch.long)
-                     for k, a, e in ranges]).to(li.device)
-    rows = A3[msl, li[pos].long()]
-    out[:, pos] = interp_rows(rows, hu[pos], hv[pos], awout)
+    rows = interp_rows(A3[sl.long()[item], li[pos].long()], hu[pos], hv[pos], awout)
+    if inst is not None:
+        i = inst.long()[item]
+        rows = rotate_rows(rows, nrm_tab[i], ovr_tab[i])
+    out[:, pos] = rows
     return out
 
 
@@ -343,7 +472,7 @@ def top_traverse(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl):
     if not stack.is_contiguous():
         raise ValueError("stack must be contiguous: it is updated in place")
     _f32(best_t, *ro, *rd)
-    if ro.x.device.type != "cuda":
+    if on_cpu(ro.x):
         return top_traverse_plain(tab, ro, rd, best_t, stack, sp, S=S, Q=Q, n_sl=n_sl)
 
     from . import cuda_build
@@ -367,74 +496,155 @@ def top_traverse(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl):
     return sl, cnt, stack, sp_o, (hist if nb else None), aabb
 
 
-def pair_intersect(blk, sl, lo, hi, ro, rd, W4, eps, *, SP, pair_block=256,
-                   n_items=None):
-    """B6: work-item pair intersection over superleaf-sorted rays. ro/rd:
-    V3 of sorted pair rays (P,); W4 (4, 10, n_msl*SP); sl holds each item's
-    (mesh) superleaf. Returns per sorted position (t, u, v, det, LOCAL tri
-    index in [0, SP)); uncovered positions hold a miss."""
+def _inst_check(inst, n, tabs, what):
+    """Validates the per-item instance word and its per-instance tables
+    (all given or all None); returns whether they are given."""
 
-    n_items = _items_check(blk, sl, lo, hi, n_items)
-    _f32(W4, *ro, *rd)
-    if W4.dim() != 3 or W4.shape[:2] != (4, 10) or W4.shape[2] % SP:
-        raise ValueError(f"W4 must be (4, 10, n*{SP}), got {tuple(W4.shape)}")
-    if ro.x.device.type != "cuda":
-        return pair_intersect_plain(blk, sl, lo, hi, ro, rd, W4, eps, SP=SP,
-                                    pair_block=pair_block, n_items=n_items)
+    given = [x is not None for x in (inst, *tabs)]
+    if any(given) != all(given):
+        raise ValueError(f"inst and {what} come together")
+    if not given[0]:
+        return False
+    _i32(inst)
+    if inst.shape[0] != n:
+        raise ValueError("inst must have one entry per work item")
+    return True
+
+
+def _pair_launch(symbol, lib, head, blk, sl, lo, hi, n_items, inst, txf_tab,
+                 ro, rd, W4, eps, SP, pair_block):
+    """Launches a pair kernel entry point (`head`: its leading int
+    arguments) and returns (t, u, v, det, li)."""
 
     from . import cuda_build
 
-    fn = cuda_build.load("bvh").lupin_pair_intersect
+    fn = getattr(cuda_build.load(lib), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_float]
-                   + [ctypes.c_void_p] * 6)
+    fn.argtypes = ([ctypes.c_int] * len(head) + [ctypes.c_void_p] * 14
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 6)
     dev = ro.x.device
     P = ro.x.shape[0]
     t = torch.full((P,), F32_MAX, dtype=torch.float32, device=dev)
     u, v, det = (torch.zeros(P, dtype=torch.float32, device=dev) for _ in range(3))
     li = torch.zeros(P, dtype=torch.int32, device=dev)
-    ins = [x.contiguous() for x in (blk, sl, lo, hi, n_items, *ro, *rd, W4)]
+    ins = [x.contiguous() for x in (blk, sl, lo, hi, n_items)]
+    tabs = [None, None] if inst is None else [inst.contiguous(),
+                                              txf_tab.contiguous()]
+    rays = [x.contiguous() for x in (*ro, *rd, W4)]
     with torch.cuda.device(dev):
-        rc = fn(*(x.data_ptr() for x in ins), W4.shape[2], blk.shape[0], SP,
+        rc = fn(*head, *(x.data_ptr() for x in ins),
+                *(None if x is None else x.data_ptr() for x in tabs),
+                *(x.data_ptr() for x in rays), W4.shape[2], blk.shape[0], SP,
                 pair_block, P, float(eps), t.data_ptr(), u.data_ptr(),
                 v.data_ptr(), det.data_ptr(), li.data_ptr(), _stream(dev))
-    cuda_build.check(rc, "pair_intersect")
-    LAUNCHES["pair_intersect"] += 1
+    cuda_build.check(rc, symbol)
     return t, u, v, det, li
 
 
+def _pair_check(blk, sl, lo, hi, n_items, ro, rd, W4, SP, inst, txf_tab):
+    n_items = _items_check(blk, sl, lo, hi, n_items)
+    _f32(W4, *ro, *rd)
+    if W4.dim() != 3 or W4.shape[:2] != (4, 10) or W4.shape[2] % SP:
+        raise ValueError(f"W4 must be (4, 10, n*{SP}), got {tuple(W4.shape)}")
+    if _inst_check(inst, blk.shape[0], (txf_tab,), "txf_tab"):
+        _f32(txf_tab)
+        if txf_tab.dim() != 2 or txf_tab.shape[1] != 12:
+            raise ValueError("txf_tab must be (n_inst, 12)")
+    return n_items
+
+
+def pair_intersect(blk, sl, lo, hi, ro, rd, W4, eps, *, SP, pair_block=256,
+                   n_items=None, inst=None, txf_tab=None):
+    """B6: work-item pair intersection over superleaf-sorted rays. ro/rd:
+    V3 of sorted pair rays (P,); W4 (4, 10, n_msl*SP); sl holds each item's
+    (mesh) superleaf. Two-level scenes add inst (n,) i32, each item's
+    instance, and txf_tab (n_inst, 12), the inverse transforms: the item's
+    rays move to mesh space in the kernel. Returns per sorted position
+    (t, u, v, det, LOCAL tri index in [0, SP)); uncovered positions hold a
+    miss."""
+
+    n_items = _pair_check(blk, sl, lo, hi, n_items, ro, rd, W4, SP, inst, txf_tab)
+    if on_cpu(ro.x):
+        return pair_intersect_plain(blk, sl, lo, hi, ro, rd, W4, eps, SP=SP,
+                                    pair_block=pair_block, n_items=n_items,
+                                    inst=inst, txf_tab=txf_tab)
+    out = _pair_launch("lupin_pair_intersect", "bvh", (), blk, sl, lo, hi,
+                       n_items, inst, txf_tab, ro, rd, W4, eps, SP, pair_block)
+    LAUNCHES["pair_intersect"] += 1
+    INST_LAUNCHES["pair_intersect"] += inst is not None
+    return out
+
+
+def pair_intersect_variant(variant, blk, sl, lo, hi, ro, rd, W4, eps, *, SP,
+                           pair_block=256, n_items=None, inst=None,
+                           txf_tab=None):
+    """B6': B6's arguments through ablation variant `variant` of its kernel
+    (PAIR_VARIANTS; csrc/pair_kernel.cuh says what each leaves out). V0 and
+    V4 return what B6 returns; V2, V3 and V5 return (t, index) with
+    u = v = det = 0 (V5: t = min(nt), index 0)."""
+
+    if variant not in PAIR_VARIANTS:
+        raise ValueError(f"unknown pair variant {variant!r}")
+    n_items = _pair_check(blk, sl, lo, hi, n_items, ro, rd, W4, SP, inst, txf_tab)
+    if on_cpu(ro.x):
+        return pair_intersect_plain(blk, sl, lo, hi, ro, rd, W4, eps, SP=SP,
+                                    pair_block=pair_block, n_items=n_items,
+                                    inst=inst, txf_tab=txf_tab, variant=variant)
+    out = _pair_launch("lupin_pair_variant", "pair_variants",
+                       (PAIR_VARIANTS.index(variant),), blk, sl, lo, hi,
+                       n_items, inst, txf_tab, ro, rd, W4, eps, SP, pair_block)
+    LAUNCHES["pair_intersect_variant"] += 1
+    return out
+
+
 def attr_fetch(blk, sl, lo, hi, li, hu, hv, A3, *, pair_block=256,
-               with_tangents=False, n_items=None):
+               with_tangents=False, n_items=None, inst=None, nrm_tab=None,
+               ovr_tab=None):
     """B7: li (P,) local winner index per sorted ray, hu/hv (P,) its
-    barycentrics, A3 (n_msl, SP, AW) attribute slices. Returns
-    (IA_ROWS[_NM], P) rows in sorted order, zeros on uncovered positions."""
+    barycentrics, A3 (n_msl, SP, AW) attribute slices. Two-level scenes add
+    inst (n,) i32, each item's instance, nrm_tab (n_inst, 9) normal matrices
+    and ovr_tab (n_inst,) i32 material overrides. Returns (IA_ROWS[_NM], P)
+    rows in sorted order, zeros on uncovered positions."""
 
     n_items = _items_check(blk, sl, lo, hi, n_items)
     _i32(li)
     _f32(hu, hv, A3)
     if A3.dim() != 3:
         raise ValueError(f"A3 must be (n_msl, SP, AW), got {tuple(A3.shape)}")
-    if li.device.type != "cuda":
+    has_inst = _inst_check(inst, blk.shape[0], (nrm_tab, ovr_tab),
+                           "nrm_tab/ovr_tab")
+    if has_inst:
+        _f32(nrm_tab)
+        _i32(ovr_tab)
+        if nrm_tab.dim() != 2 or nrm_tab.shape[1] != 9 or (
+                ovr_tab.shape != nrm_tab.shape[:1]):
+            raise ValueError("nrm_tab must be (n_inst, 9), ovr_tab (n_inst,)")
+    if on_cpu(li):
         return attr_fetch_plain(blk, sl, lo, hi, li, hu, hv, A3,
                                 pair_block=pair_block,
-                                with_tangents=with_tangents, n_items=n_items)
+                                with_tangents=with_tangents, n_items=n_items,
+                                inst=inst, nrm_tab=nrm_tab, ovr_tab=ovr_tab)
 
     from . import cuda_build
 
     fn = cuda_build.load("bvh").lupin_attr_fetch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     dev = li.device
     P = li.shape[0]
     awout = IA_ROWS_NM if with_tangents else IA_ROWS
     out = torch.zeros((awout, P), dtype=torch.float32, device=dev)
     A3 = A3.contiguous()
     ins = [x.contiguous() for x in (blk, sl, lo, hi, n_items, li, hu, hv)]
+    tabs = ([x.contiguous() for x in (inst, nrm_tab, ovr_tab)] if has_inst
+            else [None] * 3)
     with torch.cuda.device(dev):
-        rc = fn(*(x.data_ptr() for x in ins), A3.data_ptr(), blk.shape[0],
-                A3.shape[1], A3.shape[2], pair_block, P, awout,
+        rc = fn(*(x.data_ptr() for x in ins), A3.data_ptr(),
+                *(None if x is None else x.data_ptr() for x in tabs),
+                blk.shape[0], A3.shape[1], A3.shape[2], pair_block, P, awout,
                 out.data_ptr(), _stream(dev))
     cuda_build.check(rc, "attr_fetch")
     LAUNCHES["attr_fetch"] += 1
+    INST_LAUNCHES["attr_fetch"] += has_inst
     return out

@@ -21,6 +21,8 @@ import ctypes
 
 import torch
 
+from ..core.device import on_cpu
+
 F32_MAX = 3.4028234663852886e38  # float32 max (the JAX literal 3.4028235e38 rounds to it)
 
 # Packed per-triangle shading attribute layout (rows of the scene's
@@ -180,7 +182,7 @@ def dense_closest_hit(W4, R, eps):
     """B1: (t, u, v, det, idx) of the closest hit per ray."""
 
     _check(W4, R)
-    if R.device.type != "cuda":
+    if on_cpu(R):
         return dense_closest_hit_plain(W4, R, eps)
     out = _launch(W4, R, eps)
     LAUNCHES["dense_closest_hit"] += 1
@@ -193,7 +195,7 @@ def dense_closest_hit_attrs(W4, A, R, eps):
 
     _check(W4, R, A)
     A = A[: W4.shape[2]]
-    if R.device.type != "cuda":
+    if on_cpu(R):
         return dense_closest_hit_attrs_plain(W4, A, R, eps)
     out = _launch(W4, R, eps, A)
     LAUNCHES["dense_closest_hit_attrs"] += 1

@@ -17,8 +17,16 @@ ray_tri_dst (pathtracer.wgsl:2922-2943).
   torch.sort(stable=True) on the int32 key, as XLA's stable sort in the JAX
   package; an un-sort is a scatter by the original slot. The round loops'
   conditions are host syncs, counted in HOST_SYNCS.
-- Two-level (instanced) scenes are not ported yet: they raise
-  NotImplementedError (ROADMAP.md Queue A item 9).
+- Two-level (instanced) scenes keep one mesh-space soup per unique mesh and
+  a top tree over every (instance x mesh superleaf) pair. They take the same
+  wavefront: B4 in its resident or stream mode on coherent batches, and on
+  bounce batches B6/B7 with a per-item instance word up to INST_SMEM_MAX
+  instances; above it the sorted pair rays are moved to mesh space and the
+  attribute rows rotated in PyTorch around kernels that run without the
+  instance word. Triangle ids are global (superleaf * stride + lane), the
+  backside flag needs no det-sign fixup, and attributes always come from
+  `wavefront_fetch_attrs`. `closest_hit_brute_two_level` is their
+  reference for the tests: every (ray, global superleaf) pair, no tree.
 
 `closest_hit_bvh`, the JAX package's masked-stack walk over the binary BVH,
 walks the binary BVH rather than the superleaf tables the kernels walk, so
@@ -41,8 +49,6 @@ from . import dense_intersect as dk
 from . import packet
 
 F32_MAX = dk.F32_MAX
-
-TWO_LEVEL_TODO = bk.TWO_LEVEL_TODO
 
 # Host syncs of the wavefront's round loops (each loop condition reads a
 # device value). A measurement counter: set to 0 before a run, read after.
@@ -254,6 +260,52 @@ def closest_hit_bvh(scene, ro: V3, rd: V3, eps) -> HitInfo:
                    tri=best_tri, backside=best_det > 0.0)
 
 
+def closest_hit_brute_two_level(scene, ro: V3, rd: V3, eps, W,
+                                chunk: int = 16) -> HitInfo:
+    """Brute-force closest hit of a two-level scene (intersect.py:443-516):
+    every (ray, global superleaf) pair through dense products over chunks
+    of superleaves, no tree and no kernel; O(B * n_gsl * SP), a reference
+    for small batches. The instance transform as bvh_custom.wgsl:30-35
+    (direction not normalised, so t stays world-scaled). The lowest global
+    triangle id wins a tie. Only hit, dst and tri are filled."""
+
+    B = ro.x.shape[0]
+    dev = ro.x.device
+    SP = scene.sl_stride
+    n_gsl = scene.sl_count
+    Wr = W.reshape(4, 10, scene.msl_count, SP)
+    msl = scene.gsl_msl.long()
+    inv = scene.inst_inv.reshape(-1, 12)[scene.gsl_inst.long()]
+    best_t = torch.full((B,), F32_MAX, dtype=torch.float32, device=dev)
+    best_tri = torch.zeros(B, dtype=torch.int64, device=dev)
+    for g0 in range(0, n_gsl, chunk):
+        m = [inv[g0:g0 + chunk, j:j + 1] for j in range(12)]  # (C, 1) each
+        ox = m[0] * ro.x + m[1] * ro.y + m[2] * ro.z + m[3]
+        oy = m[4] * ro.x + m[5] * ro.y + m[6] * ro.z + m[7]
+        oz = m[8] * ro.x + m[9] * ro.y + m[10] * ro.z + m[11]
+        dx = m[0] * rd.x + m[1] * rd.y + m[2] * rd.z
+        dy = m[4] * rd.x + m[5] * rd.y + m[6] * rd.z
+        dz = m[8] * rd.x + m[9] * rd.y + m[10] * rd.z
+        RT = torch.stack([dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+                          ox * dy - oy * dx, ox, oy, oz, torch.ones_like(ox)],
+                         dim=1)  # (C, 10, B)
+        Wc = Wr[:, :, msl[g0:g0 + chunk]]  # (4, 10, C, SP)
+        det, nu, nv, nt = torch.einsum("frcs,crb->fcbs", Wc, RT)
+        tt, _, _ = dk.dense_epilogue(det, nu, nv, nt, eps)  # (C, B, SP)
+        C = tt.shape[0]
+        flat = tt.permute(1, 0, 2).reshape(B, C * SP)
+        k = flat.argmin(dim=1)  # first minimum: lowest (superleaf, lane)
+        t = flat.gather(1, k[:, None])[:, 0]
+        upd = t < best_t  # earlier chunks keep ties
+        best_tri = torch.where(upd, g0 * SP + k, best_tri)
+        best_t = torch.where(upd, t, best_t)
+    hit = best_t < F32_MAX
+    z = torch.zeros_like(best_t)
+    return HitInfo(hit=hit, dst=best_t, u=z, v=z,
+                   tri=torch.where(hit, best_tri, 0).to(torch.int32),
+                   backside=torch.zeros_like(hit))
+
+
 # ---------------------------------------------------------------------------
 # BVH wavefront (kernels B4-B7)
 # ---------------------------------------------------------------------------
@@ -264,6 +316,12 @@ WF_Q_TAIL = 32  # compacted straggler rounds
 WF_RAY_BLOCK = 2048  # lane padding of a batch
 WF_PAIR_BLOCK = 256  # sorted positions per work-item block
 WF_TAIL_C = 2048  # straggler-compaction capacity
+# Two-level scenes: up to this many instances B6 and B7 read the per-instance
+# tables themselves; above it the rays are transformed and the rows rotated
+# in PyTorch (intersect.py:575). The JAX package's bound describes the TPU's
+# SMEM (a padded (n, 9) table no longer fits it), not a limit of the card;
+# it is kept so that both packages take the same route on the same scene.
+INST_SMEM_MAX = 2048
 
 # The JAX package's packet-eligibility budgets (intersect.py:79-138), kept
 # so that the same scenes take the same route.
@@ -327,12 +385,13 @@ def _pad(x, n, fill):
 
 def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
                           coherent: bool = True) -> HitInfo:
-    """Closest hit of a single-level BVH scene (intersect.py:581-747):
-    kernel B4 for coherent batches; otherwise rounds of B5 top traversal ->
-    superleaf sort -> B6 pair intersection -> un-sort -> per-ray min until
-    every stack drains, full-batch rounds while more than WF_TAIL_C lanes
-    are pending, then rounds over the compacted stragglers. Inactive lanes
-    skip traversal (a miss). No det-sign backside fixup here."""
+    """Closest hit of a BVH scene, single- or two-level
+    (intersect.py:581-747): kernel B4 for coherent batches; otherwise rounds
+    of B5 top traversal -> superleaf sort -> B6 pair intersection -> un-sort
+    -> per-ray min until every stack drains, full-batch rounds while more
+    than WF_TAIL_C lanes are pending, then rounds over the compacted
+    stragglers. Inactive lanes skip traversal (a miss). No det-sign backside
+    fixup here."""
 
     B = ro.x.shape[0]
     dev = ro.x.device
@@ -351,11 +410,15 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
     PB = WF_PAIR_BLOCK
 
     if scene.top_root_is_leaf:
-        # One superleaf: every ray tests superleaf 0; one item per block.
+        # One superleaf: every ray tests superleaf 0; one item per block. A
+        # two-level scene's soup is in mesh space, so the instance transform
+        # rides along here too.
         blk = torch.arange(Bp // PB, dtype=torch.int32, device=dev)
+        msl_k, inst_k, txf_tab, _, _ = _item_instancing(
+            scene, torch.zeros_like(blk))
         t, u, v, det, li = bk.pair_intersect(
-            blk, torch.zeros_like(blk), blk * PB, blk * PB + PB, rop, rdp, W,
-            eps, SP=SP, pair_block=PB)
+            blk, msl_k, blk * PB, blk * PB + PB, rop, rdp, W, eps, SP=SP,
+            pair_block=PB, inst=inst_k, txf_tab=txf_tab)
         return HitInfo(hit=t[:B] < F32_MAX, dst=t[:B], u=u[:B], v=v[:B],
                        tri=li[:B], backside=det[:B] > 0.0)
 
@@ -457,15 +520,18 @@ def _wf_work_items(skey, n_sl, PB, cnt_sl=None):
             n_real.to(i32), n_items.to(i32))
 
 
-def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
-    """One wavefront round over Bp lanes (intersect.py:994-1103): B5 top
-    traversal -> group the (Q, Bp) emits by superleaf (stable sort) -> B6 ->
-    un-sort -> per-ray min with a strict < (the incumbent keeps ties)."""
+def _wf_pairs(scene, tab, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
+    """The first half of a wavefront round: B5 top traversal, then the
+    (Q, Bp) emits grouped by superleaf (stable sort) and cut into work
+    items. Returns B6's arguments ahead of (W, eps) and its keywords, the
+    sorted keys, the sort order, n_real and B5's (stack, sp). Two-level
+    scenes pass B6 each item's mesh superleaf and instance; above
+    INST_SMEM_MAX instances the sorted rays are moved to mesh space here
+    (one gather of each pair's inverse transform, intersect.py:1037-1053)
+    and B6 runs without the instance word."""
 
     Bp = rop.x.shape[0]
-    SP = scene.sl_stride
     n_sl = scene.sl_count
-    QB = Q * Bp
     sl, cnt, stack, sp, cnt_sl, aabb = bk.top_traverse(
         tab, rop, rdp, c["best_t"], c["stack"], c["sp"], S=S, Q=Q, n_sl=n_sl)
     pair_sl = sl.reshape(-1)  # slot q*Bp + r holds ray r
@@ -475,9 +541,31 @@ def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     s_ro = V3(*(x[ray] for x in rop))
     s_rd = V3(*(x[ray] for x in rdp))
     blk, sl_k, lo, hi, n_real, n_items = _wf_work_items(skey, n_sl, PB, cnt_sl)
-    t, u, v, det, ltri = bk.pair_intersect(
-        blk, sl_k, lo, hi, s_ro, s_rd, W, eps, SP=SP, pair_block=PB,
-        n_items=n_items)
+    huge = _huge_inst(scene)
+    msl_k, inst_k, txf_tab, _, _ = _item_instancing(scene, sl_k, tables=not huge)
+    if huge:
+        m12 = scene.inst_inv.reshape(-1, 12)[
+            scene.gsl_inst[skey.clamp(max=n_sl - 1).long()].long()]
+        o, d = bk.mesh_space(m12, s_ro, s_rd)
+        s_ro, s_rd = V3(*o), V3(*d)
+    args = (blk, msl_k, lo, hi, s_ro, s_rd)
+    kw = dict(SP=scene.sl_stride, pair_block=PB, n_items=n_items, inst=inst_k,
+              txf_tab=txf_tab)
+    return args, kw, skey, order, n_real, stack, sp
+
+
+def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
+    """One wavefront round over Bp lanes (intersect.py:994-1103): B5 top
+    traversal -> group the (Q, Bp) emits by superleaf (stable sort) -> B6 ->
+    un-sort -> per-ray min with a strict < (the incumbent keeps ties)."""
+
+    Bp = rop.x.shape[0]
+    SP = scene.sl_stride
+    n_sl = scene.sl_count
+    QB = Q * Bp
+    args, kw, skey, order, n_real, stack, sp = _wf_pairs(
+        scene, tab, rop, rdp, c, S=S, PB=PB, Q=Q)
+    t, u, v, det, ltri = bk.pair_intersect(*args, W, eps, **kw)
     t = torch.where(torch.arange(QB, device=t.device) < n_real, t, F32_MAX)
     gtri = ltri + skey.clamp(max=n_sl - 1) * SP
 
@@ -537,13 +625,29 @@ class InterpAttrs:
         ))
 
 
-def _item_instancing(scene, sl_k):
-    """Per-item mesh superleaf and instance tables (intersect.py:840-854):
-    single-level scenes are their own mesh space."""
+def _item_instancing(scene, sl_k, tables: bool = True):
+    """(msl_k, inst_k, txf_tab, nrm_tab, ovr_tab): per work item its mesh
+    superleaf and instance, and the per-instance inverse transforms
+    (n, 12), normal matrices (n, 9) and material overrides (n,)
+    (intersect.py:840-854). Single-level scenes are their own mesh space:
+    the items' superleaves and Nones. With tables=False (the large-instance
+    route, where the kernels read no instance table) only msl_k is made."""
 
-    if scene.two_level:
-        raise NotImplementedError(TWO_LEVEL_TODO)
-    return sl_k, None, None, None, None
+    if not scene.two_level:
+        return sl_k, None, None, None, None
+    g = sl_k.long()
+    if not tables:
+        return scene.gsl_msl[g].to(torch.int32), None, None, None, None
+    return (scene.gsl_msl[g].to(torch.int32), scene.gsl_inst[g].to(torch.int32),
+            scene.inst_inv.reshape(-1, 12), scene.inst_normal_mat.reshape(-1, 9),
+            scene.inst_mat.to(torch.int32))
+
+
+def _huge_inst(scene) -> bool:
+    """Two-level scenes whose instance tables B6 and B7 do not read
+    themselves (see INST_SMEM_MAX)."""
+
+    return scene.two_level and scene.num_instances > INST_SMEM_MAX
 
 
 def _ia_from_rows(r, with_tan: bool) -> InterpAttrs:
@@ -576,27 +680,46 @@ def _attr_fetch_args(scene, hit: HitInfo):
     li = torch.where(hitm, tri % SP, 0).to(torch.int32)
     skey, order = torch.sort(key, stable=True)
     blk, sl_k, lo, hi, _, n_items = _wf_work_items(skey, n_sl, PB)
-    msl_k = _item_instancing(scene, sl_k)[0]
+    # Above INST_SMEM_MAX instances the rows are rotated after the kernel.
+    msl_k, inst_k, _, nrm_tab, ovr_tab = _item_instancing(
+        scene, sl_k, tables=not _huge_inst(scene))
     A3 = scene.wt_attr[: scene.msl_count * SP].reshape(
         scene.msl_count, SP, dk.ATTR_WIDTH)
     args = (blk, msl_k, lo, hi, li[order], _pad(hit.u, pad, 0.0)[order],
             _pad(hit.v, pad, 0.0)[order], A3)
     kw = dict(pair_block=PB, with_tangents=bool(scene.any_normal_maps),
-              n_items=n_items)
+              n_items=n_items, inst=inst_k, nrm_tab=nrm_tab, ovr_tab=ovr_tab)
     return args, kw, order, hitm
 
 
 def wavefront_fetch_attrs(scene, hit: HitInfo) -> InterpAttrs:
     """InterpAttrs of BVH hits (intersect.py:857-950): rays sorted by
     winning superleaf (misses last), kernel B7 per work item, rows scattered
-    back to ray order; miss lanes are zero."""
+    back to ray order; miss lanes are zero. Two-level scenes above
+    INST_SMEM_MAX instances run B7 in mesh space and rotate the rows by the
+    winner's instance afterwards."""
 
     args, kw, order, hitm = _attr_fetch_args(scene, hit)
     a = bk.attr_fetch(*args, **kw)
     base = torch.empty_like(a)
     base[:, order] = a
     r = torch.where(hitm[None, :], base, 0.0)[:, :hit.tri.shape[0]]
+    if _huge_inst(scene):
+        r = _rotate_attrs_by_instance(scene, hit, r)
     return _ia_from_rows(r, kw["with_tangents"])
+
+
+def _rotate_attrs_by_instance(scene, hit: HitInfo, rows):
+    """The PyTorch tail of the large-instance attribute route
+    (intersect.py:953-991): what B7 does with an instance word, on rows
+    (awout, B) in ray order. Miss lanes take no override (-1): their zero
+    rows stay zeros."""
+
+    gsl = torch.where(hit.hit, hit.tri, 0).long() // scene.sl_stride
+    inst = scene.gsl_inst[gsl].long()
+    nm = scene.inst_normal_mat.reshape(-1, 9)[inst]
+    ovr = torch.where(hit.hit, scene.inst_mat[inst].to(torch.int32), -1)
+    return bk.rotate_rows(rows, nm, ovr)
 
 
 def _packet_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None):
@@ -620,20 +743,22 @@ def _packet_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None):
 def closest_hit(scene, ro: V3, rd: V3, eps, W=None, active=None,
                 coherent: bool = True) -> HitInfo:
     """ray_scene_intersection (bvh_custom.wgsl:7-110): dense scenes through
-    kernel B1, single-level BVH scenes through the wavefront, both with the
-    instance det-sign backside flip (intersect.py:1118-1167). `active`
-    masks lanes (inactive lanes report a miss); `coherent=False` marks a
-    divergent bounce batch (no B4)."""
+    kernel B1, BVH scenes through the wavefront (intersect.py:1118-1167).
+    World-soup scenes flip the backside flag by the hit instance's det sign;
+    two-level scenes intersect in object space, where det already has the
+    reference's sign (and their global triangle ids do not index wt_inst).
+    `active` masks lanes (inactive lanes report a miss); `coherent=False`
+    marks a divergent bounce batch (no B4)."""
 
     B = ro.x.shape[0]
     if scene.instances_empty:
         return miss(B, ro.x.device)
     if scene.use_bvh:
-        if scene.two_level:
-            raise NotImplementedError(TWO_LEVEL_TODO)
         h = closest_hit_wavefront(scene, ro, rd, eps, W=W, active=active,
                                   coherent=coherent)
-        return _apply_active(_fixup_backside(scene, h), active)
+        if not scene.two_level:
+            h = _fixup_backside(scene, h)
+        return _apply_active(h, active)
     if W is None:
         W = scene_tri_matrix(scene)
     t, u, v, det, idx = dk.dense_closest_hit(W, ray_features(ro, rd), eps)
@@ -645,16 +770,15 @@ def closest_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None,
                       coherent: bool = True):
     """Closest hit with the winner's attributes (intersect.py:1229-1286):
     dense scenes return the packed (ATTR_WIDTH, B) rows of kernel B2; BVH
-    scenes an InterpAttrs, from B4 on coherent batches and from
-    wavefront_fetch_attrs (B7) otherwise. A scene without instances returns
-    (miss, None)."""
+    scenes an InterpAttrs, from B4 on coherent batches of single-level
+    scenes and from wavefront_fetch_attrs (B7) otherwise (two-level scenes
+    always: B4 fuses no attributes there). A scene without instances
+    returns (miss, None)."""
 
     if scene.instances_empty:
         return closest_hit(scene, ro, rd, eps, W=W), None
     if scene.use_bvh:
-        if scene.two_level:
-            raise NotImplementedError(TWO_LEVEL_TODO)
-        if _use_packet(scene, coherent):
+        if not scene.two_level and _use_packet(scene, coherent):
             return _packet_hit_attrs(scene, ro, rd, eps, W=W, active=active)
         h = closest_hit(scene, ro, rd, eps, W=W, active=active,
                         coherent=coherent)

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..core.device import on_cpu
 from ..core.types import PathtraceType
 
 # Kernel launches (counted only where the kernel is launched).
@@ -78,7 +79,7 @@ def mega_pathtrace_spp(
     for name, x in (("pixel_idx", pixel_idx), ("gx", gx), ("gy", gy)):
         if x.shape != (B,) or x.dtype != torch.int32:
             raise TypeError(f"{name} must be (B,) int32")
-    if W4.device.type != "cuda":
+    if on_cpu(W4):
         ctx = integrators.make_ctx(scene, eps)
         ctx["W"] = W4
         return integrators.pathtrace_spp(

@@ -5,12 +5,12 @@ The counterpart of the pathtrace half of lupinpathtracer_tpu/render/renderer.py
 pathtracer.wgsl:279-288). A dispatch renders one tile (or the whole frame)
 as one flat ray batch. Scenes that pass the megakernel gate run through
 kernel B3 (kernels/mega.py); the rest through the wavefront loop
-(render/integrators.py): dense scenes with kernel B2, single-level BVH
-scenes with kernels B4 (camera rays) and B5/B6/B7 (bounces).
+(render/integrators.py): dense scenes with kernel B2, BVH scenes,
+single-level and two-level (instanced), with kernels B4 (camera rays) and
+B5/B6/B7 (bounces).
 
-Not ported yet, and raising NotImplementedError: two-level (instanced) BVH
-scenes (ROADMAP.md Queue A item 9), the MIS integrator (item 5), the
-falsecolor and debug dispatches (item 10).
+Not ported yet, and raising NotImplementedError: the MIS integrator
+(ROADMAP.md Queue A item 5), the falsecolor and debug dispatches (item 10).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ..core.types import (
     PathtraceType,
     get_num_tiles,
 )
-from ..kernels import intersect, mega
+from ..kernels import mega
 from . import integrators
 
 AOV_TODO = ("the falsecolor and debug dispatches are not ported yet: "
@@ -205,8 +205,6 @@ def pathtrace_scene(scene, image, desc: PathtraceDesc,
     measurement hook (the JAX API has no such argument) and costs one
     device-to-host sync per dispatch, so leave it None otherwise."""
 
-    if scene.use_bvh and scene.two_level:
-        raise NotImplementedError(intersect.TWO_LEVEL_TODO)
     if int(desc.pathtrace_type) == int(PathtraceType.MIS):
         raise NotImplementedError(integrators.MIS_TODO)
     if image.device != scene.device:

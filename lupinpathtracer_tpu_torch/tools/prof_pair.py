@@ -1,0 +1,193 @@
+"""Pair-kernel ablation on the card: where does B6's time go?
+
+    python3 -m lupinpathtracer_tpu_torch.tools.prof_pair [--reps N]
+
+The counterpart of the JAX repo's tools/prof_pair.py. It times the variants
+of kernel B6 (csrc/pair_kernel.cuh; wrapper
+kernels/bvh.py::pair_intersect_variant) on one real round-1 state of the
+BVH wavefront, so that the difference between two variants is the cost of
+the part that differs:
+
+  V0    as shipped (equal to pair_intersect bit for bit)
+  V1    selection t by rsqrt(det^2) and sign tests instead of the divide,
+        the winner recomputed exactly
+  V2    (t, index) only: no u, v, det
+  V3    V1 + V2
+  V4    the largest triangle tile that fits shared memory (1024 triangles
+        for a stride >= 1024; the shipped tile is 256)
+  V5    evaluate-only floor: the four products and min(nt), no validity
+  GRID  every item empty (lo == hi): the cost of the launch and its blocks
+
+A round-1 state is what the first wavefront round hands B6: the camera
+batch through B5, the superleaf sort and the work items
+(kernels/intersect.py::_wf_pairs). Two states are timed, both 512x288
+camera batches: the 2M-triangle terrain (699 superleaves of 4096
+triangles) and the 100,000-instance field (about 100k superleaves of 256
+triangles, rays moved to mesh space ahead of the kernel). Each line is one
+variant: its mean device time over the profiler's records of the kernel,
+the state, and the card's name and power limit. Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..core import rng as rng_mod
+from ..core.types import PathtraceDesc
+from ..core.vec3 import V3
+from ..kernels import bvh, intersect
+from ..render import integrators
+from ..render.renderer import _camera_args, _pixel_batch
+
+F32_MAX = bvh.F32_MAX
+VARIANTS = (*bvh.PAIR_VARIANTS, "GRID")
+
+
+def kernel_ms(fn, kernel: str, reps: int):
+    """(ms, out, timed_by): the mean device milliseconds of the CUDA kernel
+    whose name contains `kernel`, which fn() launches once per call, over
+    reps calls (torch.profiler, CUDA activity, after one warm-up call), the
+    output of the last call, and "device_records". CUDA events around a
+    loop of calls would also count the host's launch overhead, which is
+    longer than the shortest kernels run. The profiler sometimes keeps none
+    of a short window's records (and then none of an immediate repeat's
+    either), so the launches sit between two pauses inside the window and a
+    window that kept too few records is taken again with longer pauses.
+    After that the calls are timed one by one with CUDA events, host
+    overhead included, and timed_by is "events": another quantity, which
+    the caller must report as such."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for pause in (0.05, 0.5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
+            for _ in range(reps):
+                out = fn()
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if reps // 2 < len(spans) <= reps:
+            return sum(spans) / len(spans) / 1e3, out, "device_records"
+        print(f"# kernel_ms: the profiler kept {len(spans)} of {reps} records "
+              f"of {kernel} (pauses of {pause} s)", file=sys.stderr, flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps, out, "events"
+
+
+def camera_rays(cam, width: int, height: int, device):
+    """The first sample's camera rays of a width x height frame, in the
+    renderer's lane order."""
+
+    desc = PathtraceDesc()
+    desc.camera_transform = cam.transform
+    desc.camera_params = cam.params
+    gx, gy = _pixel_batch(width, height, 0, 0, device)
+    _, ro, rd = integrators._camera_ray_from(
+        dict(cam=_camera_args(desc), is_ortho=False, gx=gx, gy=gy,
+             resolution=(float(width), float(height))),
+        rng_mod.init_state(gy * width + gx, 0, 0))
+    return ro, rd
+
+
+def round1_state(scene, ro: V3, rd: V3, Q: int = intersect.WF_Q):
+    """B6's inputs in the first wavefront round of the batch (ro, rd):
+    (args, kw, info) with pair_intersect(*args, W, eps, **kw), info the
+    sorted keys, the sort order, n_real and the padded lane count."""
+
+    dev = ro.x.device
+    B = ro.x.shape[0]
+    pad = (-B) % intersect.WF_RAY_BLOCK
+    Bp = B + pad
+    rop = V3(*(intersect._pad(c, pad, 0.0) for c in ro))
+    rdp = V3(intersect._pad(rd.x, pad, 0.0), intersect._pad(rd.y, pad, 1.0),
+             intersect._pad(rd.z, pad, 0.0))
+    S = bvh.stack_depth(scene)
+    c = dict(stack=torch.zeros((S, Bp), dtype=torch.int32, device=dev),
+             sp=(torch.arange(Bp, device=dev) < B).to(torch.int32),
+             best_t=torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev))
+    args, kw, skey, order, n_real, _, _ = intersect._wf_pairs(
+        scene, scene.top_tab.float(), rop, rdp, c, S=S,
+        PB=intersect.WF_PAIR_BLOCK, Q=Q)
+    return args, kw, dict(skey=skey, order=order, n_real=n_real, lanes=Bp)
+
+
+def run_variant(variant: str, args, W, eps, kw):
+    """One launch of a variant on a round-1 state; GRID is V0 over items
+    that are all empty."""
+
+    if variant == "GRID":
+        blk, msl, lo, _, so, sd = args
+        return bvh.pair_intersect_variant("V0", blk, msl, lo, lo, so, sd, W,
+                                          eps, **kw)
+    return bvh.pair_intersect_variant(variant, *args, W, eps, **kw)
+
+
+def time_variants(args, W, eps, kw, reps: int = 5) -> dict:
+    """{variant: (ms, output of the last launch, timed_by)} (kernel_ms)."""
+
+    return {v: kernel_ms(lambda v=v: run_variant(v, args, W, eps, kw),
+                         "pair_kernel", reps) for v in VARIANTS}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--width", type=int, default=512)
+    ap.add_argument("--height", type=int, default=288)
+    ns = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("prof_pair: no CUDA GPU available", file=sys.stderr)
+        return 1
+    from .. import build_scene_torch
+    from ..io import synthetic
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    eps = float(np.float32(PathtraceDesc().advanced.ray_epsilon))
+    states = {
+        "terrain2M": lambda: synthetic.build_scene_terrain(
+            n_tris=2_000_000, seed=0),
+        "instanced100k": lambda: synthetic.build_scene_instanced_field(
+            n_instances=100_000, seed=0, tris_per_mesh=64),
+    }
+    for name, make in states.items():
+        cpu_scene, cams = make()
+        scene = build_scene_torch(cpu_scene, device=dev)
+        ro, rd = camera_rays(cams[0], ns.width, ns.height, dev)
+        W = intersect.scene_tri_matrix(scene)
+        args, kw, info = round1_state(scene, ro, rd)
+        head = dict(state=name, pairs=int(info["n_real"]),
+                    items=int(kw["n_items"]), stride=scene.sl_stride,
+                    superleaves=scene.sl_count, card=card)
+        for variant, (ms, _, timed_by) in time_variants(
+                args, W, eps, kw, ns.reps).items():
+            print(json.dumps(dict(variant=variant, ms=ms, timed_by=timed_by,
+                                  **head)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

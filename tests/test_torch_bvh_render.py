@@ -2,7 +2,8 @@
 routing (kernel B4 for coherent batches, rounds of B5/B6 plus B7 for
 bounce batches, the single-superleaf shortcut) against the JAX package's
 closest_hit_wavefront (its sort route in interpret mode) and its
-masked-stack walk, then a BVH render and a force_software_bvh render.
+masked-stack walk, then a BVH render, a force_software_bvh render and a
+two-level render (tests/test_torch_two_level.py holds those to JAX).
 
 Tolerances: hit flags equal, t within rtol 5e-4 / atol 1e-5 and winning
 triangles equal on >= 95% of hits (tests/test_wavefront.py:124-134);
@@ -212,14 +213,21 @@ def test_force_software_bvh_cornell_golden():
 
 
 def test_two_level_scene_raises():
-    """Instanced (two-level) scenes name ROADMAP.md Queue A item 9."""
+    """Instanced (two-level) scenes no longer raise (the name is kept from
+    when they did): pathtrace_scene renders the 6-instance grid field,
+    finite and lit, and progressively the same as a second call."""
 
     from test_torch_scene import grid_field
 
     ts = tl.build_scene_torch(grid_field(tl, tbuiltin), device="cpu")
-    assert ts.two_level
+    assert ts.two_level and ts.use_bvh
+    _, cams = tbuiltin.build_scene_cornell_box()
     desc = tl.PathtraceDesc()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 9"):
-        tl.pathtrace_scene(ts, tl.new_accumulation_buffer(8, 8, device="cpu"),
-                           desc, tl.BakedPathtraceParams(max_bounces=1,
-                                                         samples_per_pixel=1))
+    desc.camera_transform = cams[0].transform
+    desc.camera_params = cams[0].params
+    baked = tl.BakedPathtraceParams(max_bounces=2, samples_per_pixel=2)
+    img0 = tl.new_accumulation_buffer(16, 16, device="cpu")
+    img = tl.pathtrace_scene(ts, img0, desc, baked)
+    assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0
+    assert torch.equal(img, tl.pathtrace_scene(ts, img0, desc, baked))

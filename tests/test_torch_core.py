@@ -140,3 +140,49 @@ def test_port_imports_no_jax(target):
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert not bad, bad
+
+
+def test_wrappers_serve_cpu_and_cuda_tensors_only():
+    """A kernel wrapper runs its plain version only because its tensors lie
+    on the CPU, and on any device but the CPU and CUDA it raises."""
+
+    from lupinpathtracer_tpu_torch.core.device import on_cpu
+    from lupinpathtracer_tpu_torch.kernels import bvh, dense_intersect
+
+    assert on_cpu(torch.zeros(1))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        on_cpu(torch.zeros(1, device="meta"))
+    R = torch.zeros((4, 10), device="meta")
+    W = torch.zeros((4, 10, 8), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        dense_intersect.dense_closest_hit(W, R, 1e-3)
+    z = torch.zeros(1, dtype=torch.int32, device="meta")
+    f = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        bvh.pair_intersect(z, z, z, z, tv3.V3(f, f, f), tv3.V3(f, f, f), W,
+                           1e-3, SP=8, pair_block=4)
+
+
+def test_failing_build_or_launch_raises(monkeypatch, tmp_path):
+    """No way around a kernel that does not build or launch: a missing
+    compiler, a compiler error and a nonzero launch code all raise."""
+
+    from lupinpathtracer_tpu_torch.kernels import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.load("pair_variants")
+    monkeypatch.undo()
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "false")  # exits 1
+    with pytest.raises(RuntimeError, match="nvcc failed for csrc/bvh.cu"):
+        cuda_build.load("bvh")
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        cuda_build.check(9, "pair_intersect")
+    cuda_build.check(0, "pair_intersect")
+    assert set(cuda_build.SOURCES) == {
+        p.stem for p in (REPO / "lupinpathtracer_tpu_torch" / "csrc").glob("*.cu")}

@@ -12,7 +12,12 @@ reciprocal multiply). The BVH kernels B4-B7 equal their plain versions
 exactly on a 300k-triangle terrain (several superleaves, four sub-chunks
 each): the same tables walked in the same order with the same f32
 arithmetic. Both BVH routes are also held to closest_hit_bvh, the walk of
-the binary BVH (tolerances in that test)."""
+the binary BVH (tolerances in that test). Two-level scenes: on a
+2,000-instance field (small enough for B4's resident mode and for the
+instance word of B6 and B7) both B4 modes, B6 and B7 with and without the
+instance word, and the B6' variants equal their plain versions exactly
+(V1/V3 select with rsqrt: the winner may differ on <= 1e-4 of hit lanes),
+and both routes are held to closest_hit_brute_two_level."""
 
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
 from lupinpathtracer_tpu_torch.kernels import intersect, mega, packet
 from lupinpathtracer_tpu_torch.render import integrators
 from lupinpathtracer_tpu_torch.render.renderer import _camera_args, _pixel_batch
+from lupinpathtracer_tpu_torch.tools import prof_pair
 
 EPS = 1e-3
 
@@ -84,12 +90,37 @@ def test_megakernel_matches_plain_on_card(cuda_device):
             torch.testing.assert_close(a[eq], b[eq], rtol=2e-4, atol=2e-5)
 
 
+def _camera_rays(cams, w, h, dev):
+    desc = tl.PathtraceDesc()
+    desc.camera_transform = cams[0].transform
+    desc.camera_params = cams[0].params
+    gx, gy = _pixel_batch(w, h, 0, 0, dev)
+    _, ro, rd = integrators._camera_ray_from(
+        dict(cam=_camera_args(desc), is_ortho=False, gx=gx, gy=gy,
+             resolution=(float(w), float(h))),
+        rng_mod.init_state(gy * w + gx, 0, 0))
+    return ro, rd
+
+
+def _bounce_batch(ro, rd, t, gn):
+    """Rays from the camera hits (the camera origin on misses) into random
+    directions on the side of the geometric normal facing the camera."""
+
+    dev = t.device
+    d = np.random.default_rng(5).normal(size=(3, t.shape[0]))
+    d /= np.linalg.norm(d, axis=0)
+    d = V3(*(torch.tensor(c, dtype=torch.float32, device=dev) for c in d))
+    flip = (d.x * gn.x + d.y * gn.y + d.z * gn.z) * (
+        rd.x * gn.x + rd.y * gn.y + rd.z * gn.z) > 0.0
+    d = V3(*(torch.where(flip, -c, c) for c in d))
+    th = torch.where(t < dk.F32_MAX, t, 0.0)
+    return V3(*(a + b * th for a, b in zip(ro, rd))), d
+
+
 @pytest.fixture(scope="module")
 def terrain_rays():
     """A 300k-triangle terrain on the card, its 128x72 camera rays and a
-    bounce batch: rays from the camera hits (the camera origin on misses)
-    into random directions on the side of the geometric normal facing the
-    camera."""
+    bounce batch from their hits."""
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels run only on the card")
@@ -97,29 +128,10 @@ def terrain_rays():
     scene, cams = synthetic.build_scene_terrain(n_tris=300_000, seed=0)
     ts = tl.build_scene_torch(scene, device=dev)
     assert ts.use_bvh and not ts.top_root_is_leaf and ts.sl_sub.shape[1] > 1
-    desc = tl.PathtraceDesc()
-    desc.camera_transform = cams[0].transform
-    desc.camera_params = cams[0].params
-    w, h = 128, 72
-    gx, gy = _pixel_batch(w, h, 0, 0, dev)
-    _, ro, rd = integrators._camera_ray_from(
-        dict(cam=_camera_args(desc), is_ortho=False, gx=gx, gy=gy,
-             resolution=(float(w), float(h))),
-        rng_mod.init_state(gy * w + gx, 0, 0))
+    ro, rd = _camera_rays(cams, 128, 72, dev)
     W = intersect.scene_tri_matrix(ts)
     t, *_, ia = packet.packet_traverse(ts, ro, rd, EPS, W, with_attrs=True)
-    hit = t < dk.F32_MAX
-    gn = V3(*ia[bvh.IA_GN])
-    rng = np.random.default_rng(5)
-    d = rng.normal(size=(3, t.shape[0]))
-    d /= np.linalg.norm(d, axis=0)
-    d = V3(*(torch.tensor(c, dtype=torch.float32, device=dev) for c in d))
-    flip = (d.x * gn.x + d.y * gn.y + d.z * gn.z) * (
-        rd.x * gn.x + rd.y * gn.y + rd.z * gn.z) > 0.0
-    d = V3(*(torch.where(flip, -c, c) for c in d))
-    th = torch.where(hit, t, 0.0)
-    o = V3(*(a + b * th for a, b in zip(ro, rd)))
-    return ts, W, (ro, rd), (o, d)
+    return ts, W, (ro, rd), _bounce_batch(ro, rd, t, V3(*ia[bvh.IA_GN]))
 
 
 @pytest.mark.gpu
@@ -236,3 +248,154 @@ def test_bvh_routes_match_stack_walk_on_card(terrain_rays):
             assert float(same.sum()) >= 0.95 * n_ref
             torch.testing.assert_close(h.dst[same], ref.dst[same], rtol=5e-4,
                                        atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# Two-level (instanced) scenes
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def field_rays():
+    """A 2,000-instance field on the card (two-level; B4 resident by the
+    routing, B6/B7 with the instance word), its 128x72 camera rays and a
+    bounce batch from their hits."""
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    dev = torch.device("cuda", 0)
+    scene, cams = synthetic.build_scene_instanced_field(2_000, seed=0,
+                                                        tris_per_mesh=64)
+    ts = tl.build_scene_torch(scene, device=dev)
+    assert ts.two_level and packet.tables_resident(ts)
+    assert ts.num_instances <= intersect.INST_SMEM_MAX
+    ro, rd = _camera_rays(cams, 128, 72, dev)
+    W = intersect.scene_tri_matrix(ts)
+    h, ia = intersect.closest_hit_attrs(ts, ro, rd, EPS, W=W)
+    assert bool(h.hit.any())
+    return ts, W, (ro, rd), _bounce_batch(ro, rd, h.dst, ia.gn)
+
+
+@pytest.mark.gpu
+def test_b4_two_level_modes_match_plain_on_card(field_rays):
+    ts, W, (ro, rd), (o, d) = field_rays
+    for O, D in ((ro, rd), (o, d)):
+        packet.MODE_LAUNCHES.update(resident=0, stream=0)
+        res = packet.packet_traverse(ts, O, D, EPS, W, stream=False)
+        stm = packet.packet_traverse(ts, O, D, EPS, W, stream=True)
+        assert packet.MODE_LAUNCHES["resident"] == 1
+        assert packet.MODE_LAUNCHES["stream"] == 1
+        plain = packet.packet_traverse_plain(ts, O, D, EPS, W)
+        assert bool((res[0] < dk.F32_MAX).any())
+        for a, b, c in zip(res, stm, plain):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    with pytest.raises(ValueError, match="wavefront_fetch_attrs"):
+        packet.packet_traverse(ts, ro, rd, EPS, W, with_attrs=True)
+
+
+@pytest.mark.gpu
+def test_b6_b7_instance_modes_match_plain_on_card(field_rays, monkeypatch):
+    """B6 with the instance word against its plain version and against B6
+    on rays moved to mesh space in PyTorch (the large-instance route); B7
+    with the instance word against its plain version and against B7 in mesh
+    space followed by the PyTorch rotation."""
+
+    ts, W, _, (o, d) = field_rays
+    args, kw, _ = prof_pair.round1_state(ts, o, d)
+    assert kw["inst"] is not None
+    bvh.INST_LAUNCHES["pair_intersect"] = 0
+    k = bvh.pair_intersect(*args, W, EPS, **kw)
+    assert bvh.INST_LAUNCHES["pair_intersect"] == 1
+    p = bvh.pair_intersect_plain(*args, W, EPS, **kw)
+    assert bool((k[0] < dk.F32_MAX).any())
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    with monkeypatch.context() as m:
+        m.setattr(intersect, "INST_SMEM_MAX", 0)
+        args0, kw0, _ = prof_pair.round1_state(ts, o, d)
+    assert kw0["inst"] is None
+    pre = bvh.pair_intersect(*args0, W, EPS, **kw0)
+    assert bvh.INST_LAUNCHES["pair_intersect"] == 1
+    for a, b in zip(k, pre):
+        assert torch.equal(a, b)
+
+    outs = {}
+    for imax in (intersect.INST_SMEM_MAX, 0):
+        monkeypatch.setattr(intersect, "INST_SMEM_MAX", imax)
+        h = intersect.closest_hit(ts, o, d, EPS, W=W, coherent=False)
+        args7, kw7, _, _ = intersect._attr_fetch_args(ts, h)
+        assert (kw7["inst"] is None) == (imax == 0)
+        rows = bvh.attr_fetch(*args7, **kw7)
+        assert torch.equal(rows, bvh.attr_fetch_plain(*args7, **kw7))
+        outs[imax] = (h, intersect.wavefront_fetch_attrs(ts, h))
+    (h1, a1), (h2, a2) = outs.values()
+    assert bool(h1.hit.any()) and torch.equal(h1.dst, h2.dst)
+    assert torch.equal(h1.tri, h2.tri)
+    for f in ("n", "gn"):
+        for x, y in zip(getattr(a1, f), getattr(a2, f)):
+            assert torch.equal(x, y)
+    assert torch.equal(a1.mat_id, a2.mat_id)
+    gn2 = a1.gn.x ** 2 + a1.gn.y ** 2 + a1.gn.z ** 2
+    torch.testing.assert_close(gn2[h1.hit], torch.ones_like(gn2[h1.hit]),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_two_level_routes_match_brute_force_on_card(field_rays):
+    """closest_hit on both routes against closest_hit_brute_two_level: hit
+    flags differing on <= 0.1% of hits, t within rtol 1e-5 / atol 1e-5 where
+    both hit (the same coefficient algebra; the reference sums its products
+    in another order, which can move a grazing hit across a validity test),
+    winners equal on >= 95% of hits (ties across instances)."""
+
+    ts, W, (ro, rd), (o, d) = field_rays
+    for O, D in ((ro, rd), (o, d)):
+        step = O.x.shape[0] // 2048  # lanes from all over the frame
+        O, D = V3(*(c[::step] for c in O)), V3(*(c[::step] for c in D))
+        ref = intersect.closest_hit_brute_two_level(ts, O, D, EPS, W, chunk=64)
+        n_ref = float(ref.hit.sum())
+        assert n_ref > 0
+        for coherent in (True, False):
+            h = intersect.closest_hit(ts, O, D, EPS, W=W, coherent=coherent)
+            assert float((h.hit != ref.hit).sum()) <= 1e-3 * n_ref
+            both = h.hit & ref.hit
+            torch.testing.assert_close(h.dst[both], ref.dst[both],
+                                       rtol=1e-5, atol=1e-5)
+            assert float((h.tri == ref.tri)[ref.hit].sum()) >= 0.95 * n_ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene_name", ["terrain", "field"])
+def test_pair_variants_match_plain_on_card(scene_name, request):
+    """B6': V0 and V4 equal B6 bit for bit; every variant equals its plain
+    version on what it returns (V1/V3: the winner on >= 1 - 1e-4 of hit
+    lanes, the values exactly where it agrees)."""
+
+    ts, W, _, (o, d) = request.getfixturevalue(scene_name + "_rays")
+    args, kw, _ = prof_pair.round1_state(ts, o, d)
+    assert (kw["inst"] is not None) == ts.two_level
+    b6 = bvh.pair_intersect(*args, W, EPS, **kw)
+    assert bool((b6[0] < dk.F32_MAX).any())
+    bvh.LAUNCHES["pair_intersect_variant"] = 0
+    for variant in bvh.PAIR_VARIANTS:
+        k = bvh.pair_intersect_variant(variant, *args, W, EPS, **kw)
+        p = bvh.pair_intersect_plain(*args, W, EPS, variant=variant, **kw)
+        if variant in ("V0", "V4"):
+            for a, b in zip(k, b6):
+                assert torch.equal(a, b), variant
+        if variant in ("V1", "V3"):
+            hit = (k[0] < dk.F32_MAX) | (p[0] < dk.F32_MAX)
+            same = k[4] == p[4]
+            assert float((~same & hit).sum()) <= 1e-4 * float(hit.sum()), variant
+            for a, b in zip(k, p):
+                assert torch.equal(a[same], b[same]), variant
+        else:
+            for a, b in zip(k, p):
+                assert torch.equal(a, b), variant
+        if variant == "V2":
+            assert torch.equal(k[0], b6[0]) and torch.equal(k[4], b6[4])
+            assert not bool(k[1].any() or k[2].any() or k[3].any())
+    assert bvh.LAUNCHES["pair_intersect_variant"] == len(bvh.PAIR_VARIANTS)
+    # An all-empty grid leaves the prefilled miss in place.
+    e = prof_pair.run_variant("GRID", args, W, EPS, kw)
+    assert bool((e[0] == dk.F32_MAX).all()) and not bool(e[4].any())
