@@ -6,8 +6,10 @@ Builds the port's CUDA kernels from lupinpathtracer_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card, and drives the port's
 main paths through its entry points:
 - dense route: the progressive Cornell-box render, 512x512, 8 bounces,
-  64 spp per accumulation (kernel B3), the DIRECT wavefront (B2) and a
-  closest-hit query (B1), and a 32x32 render against the repo's golden;
+  64 spp per accumulation (kernel B3; its warp efficiency from n_traced),
+  the DIRECT wavefront (B2) and a closest-hit query (B1), and a 32x32
+  render against the repo's golden; B3 also against its plain version on
+  a box with a 520-triangle sphere (its triangle table read through L1);
 - BVH route: the 2M-triangle synthetic terrain (bench.py's terrain2M),
   512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 on camera rays,
   B5/B6/B7 on every bounce batch), B4-B7 against their plain versions at
@@ -15,14 +17,16 @@ main paths through its entry points:
   (force_software_bvh: B6/B7) against the golden;
 - two-level route: the 100,000-instance field (bench.py's instanced100k),
   512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 in stream mode
-  on camera rays; B5, B6 on rays moved to mesh space in PyTorch, B7 plus
-  the PyTorch rotation on every bounce batch), and a 2,000-instance field
-  small enough for B4's resident mode and the instance word of B6 and B7;
-  on both, each kernel and mode against its plain version, both B4 modes
-  and both instance routes against each other, and closest_hit against the
-  brute-force two-level reference;
-- the B6' ablation variants (tools/prof_pair.py of the port) on the
-  round-1 states of the terrain2M and instanced100k camera batches.
+  on camera rays; B5, B6 and B7 with the per-item instance word on every
+  bounce batch), and a 2,000-instance field small enough for B4's resident
+  mode; on both, each kernel and mode against its plain version, both B4
+  modes against each other, and closest_hit against the brute-force
+  two-level reference;
+- B6 and the B6' ablation variants (tools/prof_pair.py of the port; V0 is
+  B6's earlier design) in turns on the round-1 states of the terrain2M and
+  instanced100k camera batches, with the share of B6's threads that hold a
+  pair in each design, and B6 against V0 on every B6 launch of one
+  accumulation of each BVH main path, replayed.
 Each phase prints one JSON line; any failure raises and exits nonzero. The
 kernels line holds each kernel's (and mode's) launches on its main path,
 its error against the plain version, its device time (torch.profiler) and
@@ -49,7 +53,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "cornell_32_standard.npy")
 TERRAIN_TRIS = 2_000_000  # bench.py's terrain2M
 FIELD_INSTANCES = 100_000  # bench.py's instanced100k
-SMALL_FIELD_INSTANCES = 2_000  # B4 resident, B6/B7 with the instance word
+SMALL_FIELD_INSTANCES = 2_000  # small enough for B4's resident mode
 # f32 operations per unit of work, for the bounds:
 PAIR_OPS = 81  # ray/triangle: 4 ten-term dot products (76) + 1/det, 3 products, u+v
 SLAB_OPS = 26  # ray/box: 6 subtractions, 6 products, 10 min/max, 4 compares
@@ -157,7 +161,7 @@ def plain_ms(fn):
 
 
 KERNEL_GROUPS = (("B4", "packet_kernel"), ("B5", "top_kernel"),
-                 ("B6", "pair_kernel"), ("B7", "attr_kernel"))
+                 ("B6", "pair_hit_kernel"), ("B7", "attr_kernel"))
 
 
 def device_profile(fn):
@@ -251,6 +255,60 @@ def glossy_cornell(lt, builtin):
     scene.instances[5].mat_idx = pbr  # short box
     scene.instances[6].mat_idx = glossy  # tall box
     return scene, cams
+
+
+def sphere_cornell(lt, builtin, n_lat=14, n_lon=20):
+    """The Cornell box with a UV sphere of (n_lat - 1) * n_lon * 2 = 520
+    triangles: 556 in all, a dense scene whose triangle table B3 reads
+    through L1 rather than from shared memory."""
+
+    scene, cams = builtin.build_scene_cornell_box()
+    lat = np.linspace(0.15, np.pi - 0.15, n_lat)
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    pts = np.asarray([[np.sin(a) * np.cos(b), np.cos(a), np.sin(a) * np.sin(b)]
+                      for a in lat for b in lon], np.float32)
+    idx = []
+    for i in range(n_lat - 1):
+        for j in range(n_lon):
+            a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+            c, d = (i + 1) * n_lon + j, (i + 1) * n_lon + (j + 1) % n_lon
+            idx += [[a, b, c], [b, d, c]]
+    mesh = scene.add_mesh(lt.MeshCPU(positions=pts, indices=np.asarray(idx, np.int32),
+                                     normals=pts.copy(), texcoords=None, colors=None))
+    frame = np.zeros((3, 4), np.float32)
+    frame[:, :3] = 0.25 * np.eye(3, dtype=np.float32)
+    frame[:, 3] = (0.3, 1.2, 0.2)
+    scene.instances.append(lt.InstanceCPU(frame=frame, mesh_idx=mesh, mat_idx=0))
+    return scene, cams
+
+
+def warp_efficiency(n_traced):
+    """B3's lockstep efficiency: sum(n_traced) / (32 * sum over groups of
+    32 consecutive lanes of their largest n_traced)."""
+
+    nt = n_traced.long()
+    pad = (-nt.shape[0]) % 32
+    g = torch.cat([nt, nt.new_zeros(pad)]).reshape(-1, 32)
+    return float(nt.sum()) / float(32 * g.max(dim=1).values.sum())
+
+
+def pair_live_shares(blk, lo, hi, n_items, P):
+    """Share of B6's threads that hold a pair, in the earlier design (a
+    block of PB threads per non-empty work item) and in the redesign (a
+    block of PAIR_TILE threads per tile of sorted positions that holds a
+    covered one), and the pair count."""
+
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect
+
+    PB = intersect.WF_PAIR_BLOCK
+    item = bvh.pair_item_map(blk, lo, hi, n_items, PB, P)
+    pos = torch.nonzero(item >= 0)[:, 0]
+    pairs = int(pos.numel())
+    busy_items = int(torch.unique(item[pos]).numel())
+    tiles = int(torch.unique(pos // bvh.PAIR_TILE).numel())
+    return dict(pairs=pairs, old_live_share=pairs / max(busy_items * PB, 1),
+                new_live_share=pairs / max(tiles * bvh.PAIR_TILE, 1),
+                old_blocks=busy_items, new_tiles=tiles)
 
 
 def bounce_batch(ro, rd, t, gn, F32_MAX, seed):
@@ -392,16 +450,18 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     args6 = (blk, sl_k, lo, hi, so, sd, W, eps)
     kw6 = dict(SP=SP, pair_block=PB, n_items=n_items)
     t_b6, k6, by6 = kernel_ms(lambda: bvh.pair_intersect(*args6, **kw6),
-                         "pair_kernel", 5)
+                              "pair_hit_kernel", 5)
     p_b6, p6 = plain_ms(lambda: bvh.pair_intersect_plain(*args6, **kw6))
     res_b6 = compare_hits(k6, p6, F32_MAX)
     assert res_b6["hit_flag_mismatch"] == 0, res_b6
+    assert all(bool(torch.equal(a, b)) for a, b in zip(k6, p6))
     pairs, items = int(n_real), int(n_items)
     sl_used = int(torch.unique(sl_k[:items]).numel())
     bnd_b6 = bound_ms(pairs * SP * PAIR_OPS,
                       pairs * (24 + 20) + items * 16 + sl_used * SP * 160)
-    emit("b6_vs_plain", pairs=pairs, items=items, superleaves=sl_used,
-         pair_slots=int(skey.shape[0]), **res_b6)
+    emit("b6_vs_plain", items=items, superleaves=sl_used,
+         pair_slots=int(skey.shape[0]),
+         **pair_live_shares(blk, lo, hi, n_items, int(skey.shape[0])), **res_b6)
 
     # B7 on the batch's winners, sorted as wavefront_fetch_attrs sorts them.
     h = intersect.closest_hit_wavefront(ts, o, d, eps, W=W, coherent=False)
@@ -456,6 +516,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     emit("main_path_bvh_profile", accumulations=1, card=smi,
          device_busy_share_of_timed_wall=prof["device_busy_ms"] * 1e-3
          * timed_accums / wall, **prof)
+    emit_b6_launches(ts, desc, width, height, spp, bounces, f"terrain{n_tris}", smi)
 
     # -- 10. the Cornell box on the BVH route (one superleaf: B6, B7) --------
     reset(*counters)
@@ -481,7 +542,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
               bnd_b4, by4),
         entry("B5 top_traverse", "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:344",
               launches["top_traverse"], err5, t_b5, p_b5, bnd_b5, by5),
-        entry("B6 pair_intersect", "pair_kernel.cuh", "lupinpathtracer_tpu/kernels/pallas_bvh.py:665",
+        entry("B6 pair_intersect", "pair_intersect.cuh", "lupinpathtracer_tpu/kernels/pallas_bvh.py:665",
               launches["pair_intersect"], res_b6["max_abs_err"], t_b6, p_b6,
               bnd_b6, by6),
         entry("B7 attr_fetch", "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
@@ -489,24 +550,44 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     ], (ts, ro, rd, W, eps)
 
 
-def entry(name, src, replaces, launches, err, ms, p_ms, bnd, timed_by):
+def emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi):
+    """B6 and its earlier design (V0) on every B6 launch of one main-path
+    accumulation (tools/prof_pair.main_path_launches): their sums, and per
+    launch [pairs, tiles, mean and largest superleaves per tile, split
+    chunks, B6 ms, V0 ms]."""
+
+    from lupinpathtracer_tpu_torch.tools import prof_pair
+
+    runs = prof_pair.main_path_launches(ts, desc, width, height, spp, bounces)
+    emit("b6_main_path_launches", scene=tag, card=smi, launches=len(runs),
+         b6_ms=sum(r["b6_ms"] for r in runs), v0_ms=sum(r["v0_ms"] for r in runs),
+         timed_by=sorted({r["timed_by"] for r in runs}),
+         per_launch=[[r["pairs"], r["tiles"], round(r["superleaves_per_tile"], 2),
+                      r["superleaves_per_tile_max"], r["split_chunks"],
+                      round(r["b6_ms"], 4), round(r["v0_ms"], 4)] for r in runs])
+
+
+def entry(name, src, replaces, launches, err, ms, p_ms, bnd, timed_by,
+          launches_in="main path"):
     """One element of the kernels line. `ms` is the kernel's device time
-    where timed_by is "device_records" (kernel_ms)."""
+    where timed_by is "device_records" (kernel_ms). `launches` is the
+    wrapper's launch counter over the run that `launches_in` names: the
+    entry's main path, or the round-1 timing of prof_pair_phase."""
 
     return dict(name=name, route="cuda",
                 source=f"lupinpathtracer_tpu_torch/csrc/{src}",
                 replaces=replaces, launches=launches,
                 max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=None, timed_by=timed_by)
+                bound_by=bnd[1], library_ms=None, timed_by=timed_by,
+                launches_in=launches_in)
 
 
 def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     """One instanced scene's kernels against their plain versions at its
     main path's shapes: B4 in both modes on the camera rays; B5, and B6 and
-    B7 on both instance routes (the per-item instance word; PyTorch moving
-    the rays to mesh space before B6 and rotating the rows after B7), on
-    the first bounce batch; closest_hit against the brute-force reference
-    on `brute_rays` of those rays. Returns {key: (max_abs_err, ms, plain
+    B7 with the per-item instance word, on the first bounce batch;
+    closest_hit against the brute-force reference on `brute_rays` of those
+    rays. Returns {key: (max_abs_err, ms, plain
     ms, bound, timed_by)}, entry()'s last arguments, and the camera batch
     (ro, rd, W, eps)."""
 
@@ -594,78 +675,54 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
         + (work5["pops"] + work5["pushes"]) * 4
         + bvh.hist_bins(n_sl) * 4 + rows * TOP_COLS * 4), by5)
 
-    # B6 on the round's pairs, both instance routes: forcing INST_SMEM_MAX
-    # picks the route that _wf_pairs prepares.
-    c0 = dict(stack=stack0, sp=sp0, best_t=bt0)
-    routed_huge = intersect._huge_inst(ts)
-    inst_max = intersect.INST_SMEM_MAX
-    k6, k7, h7 = {}, {}, {}
-    try:
-        for route, imax in (("inst", n_inst), ("pre", 0)):
-            intersect.INST_SMEM_MAX = imax
-            c0["stack"] = stack0.clone()
-            pre_ms, (args6, kw6, skey, _, n_real, _, _) = plain_ms(
-                lambda: intersect._wf_pairs(ts, tab, op, dp, c0, S=S,
-                                            PB=intersect.WF_PAIR_BLOCK, Q=Q))
-            assert (kw6["inst"] is None) == (route == "pre")
-            t_b6, k6[route], by6 = kernel_ms(
-                lambda: bvh.pair_intersect(*args6, W, eps, **kw6),
-                "pair_kernel", 5)
-            p_b6, p6 = plain_ms(lambda: bvh.pair_intersect_plain(
-                *args6, W, eps, **kw6))
-            res6 = compare_hits(k6[route], p6, F32_MAX)
-            assert res6["hit_flag_mismatch"] == 0, res6
-            pairs, items = int(n_real), int(kw6["n_items"])
-            msl_used = int(torch.unique(args6[1][:items]).numel())
-            xform = route == "inst"
-            bnd6 = bound_ms(
-                pairs * SP * PAIR_OPS + (pairs * XFORM_OPS if xform else 0),
-                pairs * (24 + 20) + items * (20 if xform else 16)
-                + msl_used * SP * 160 + (n_inst * 48 if xform else 0))
-            out["b6_" + route] = (res6["max_abs_err"], t_b6, p_b6, bnd6, by6)
-            emit("b6_two_level_vs_plain", scene=tag, route=route, pairs=pairs,
-                 items=items, item_capacity=int(args6[0].shape[0]),
-                 mesh_superleaves=msl_used, wf_pairs_ms=pre_ms, **res6)
+    # B6 on the round's pairs, each item's rays moved to mesh space by its
+    # instance word in the kernel.
+    c0 = dict(stack=stack0.clone(), sp=sp0, best_t=bt0)
+    pre_ms, (args6, kw6, skey, _, n_real, _, _) = plain_ms(
+        lambda: intersect._wf_pairs(ts, tab, op, dp, c0, S=S,
+                                    PB=intersect.WF_PAIR_BLOCK, Q=Q))
+    assert kw6["inst"] is not None
+    t_b6, k6, by6 = kernel_ms(lambda: bvh.pair_intersect(*args6, W, eps, **kw6),
+                              "pair_hit_kernel", 5)
+    p_b6, p6 = plain_ms(lambda: bvh.pair_intersect_plain(*args6, W, eps, **kw6))
+    res6 = compare_hits(k6, p6, F32_MAX)
+    assert res6["hit_flag_mismatch"] == 0, res6
+    assert all(bool(torch.equal(a, b)) for a, b in zip(k6, p6))
+    pairs, items = int(n_real), int(kw6["n_items"])
+    msl_used = int(torch.unique(args6[1][:items]).numel())
+    bnd6 = bound_ms(pairs * SP * PAIR_OPS + pairs * XFORM_OPS,
+                    pairs * (24 + 20) + items * 20 + msl_used * SP * 160
+                    + n_inst * 48)
+    out["b6"] = (res6["max_abs_err"], t_b6, p_b6, bnd6, by6)
+    emit("b6_two_level_vs_plain", scene=tag, items=items,
+         item_capacity=int(args6[0].shape[0]), mesh_superleaves=msl_used,
+         wf_pairs_ms=pre_ms, **pair_live_shares(
+             args6[0], args6[2], args6[3], kw6["n_items"], int(skey.shape[0])),
+         **res6)
 
-            # B7 on the batch's winners, sorted as wavefront_fetch_attrs
-            # sorts them; on the "pre" route the rows are rotated after it.
-            h7[route] = intersect.closest_hit(ts, o, d, eps, W=W, coherent=False)
-            args7, kw7, _, _ = intersect._attr_fetch_args(ts, h7[route])
-            assert (kw7["inst"] is None) == (route == "pre")
-            t_b7, rows7, by7 = kernel_ms(lambda: bvh.attr_fetch(*args7, **kw7),
-                                    "attr_kernel", 5)
-            p_b7, p7 = plain_ms(lambda: bvh.attr_fetch_plain(*args7, **kw7))
-            err7 = float((rows7 - p7).abs().max())
-            rows_equal = bool(torch.equal(rows7, p7))
-            fetch_ms, k7[route] = cuda_ms(
-                lambda: intersect.wavefront_fetch_attrs(ts, h7[route]), 3)
-            hits7 = int(h7[route].hit.sum())
-            row_b = attr_row_bytes(bool(ts.any_normal_maps))
-            bnd7 = bound_ms(
-                hits7 * (11 * 5 + (ROTATE_OPS if xform else 0)),
-                hits7 * (row_b + 12) + rows7.numel() * 4
-                + int(args7[0].shape[0]) * (20 if xform else 16)
-                + (n_inst * 40 if xform else 0))
-            out["b7_" + route] = (err7, t_b7, p_b7, bnd7, by7)
-            emit("b7_two_level_vs_plain", scene=tag, route=route, hits=hits7,
-                 item_capacity=int(args7[0].shape[0]), rows_equal=rows_equal,
-                 max_abs_err=err7, wavefront_fetch_attrs_ms=fetch_ms)
-            # 1 / sqrt is IEEE in the kernel and in PyTorch: equal rows.
-            assert rows_equal
-    finally:
-        intersect.INST_SMEM_MAX = inst_max
-    routes_equal = (
-        all(bool(torch.equal(a, b)) for a, b in zip(k6["inst"], k6["pre"]))
-        and all(bool(torch.equal(getattr(h7["inst"], f), getattr(h7["pre"], f)))
-                for f in ("hit", "dst", "u", "v", "tri", "backside"))
-        and all(bool(torch.equal(a, b)) for f in ("n", "gn")
-                for a, b in zip(getattr(k7["inst"], f), getattr(k7["pre"], f)))
-        and bool(torch.equal(k7["inst"].mat_id, k7["pre"].mat_id)))
-    gn2 = sum(c * c for c in k7["inst"].gn)[h7["inst"].hit]
-    emit("instance_routes", scene=tag, routed="pre" if routed_huge else "inst",
-         routes_equal=routes_equal,
+    # B7 on the batch's winners, sorted as wavefront_fetch_attrs sorts them.
+    h7 = intersect.closest_hit(ts, o, d, eps, W=W, coherent=False)
+    args7, kw7, _, _ = intersect._attr_fetch_args(ts, h7)
+    assert kw7["inst"] is not None
+    t_b7, rows7, by7 = kernel_ms(lambda: bvh.attr_fetch(*args7, **kw7),
+                                 "attr_kernel", 5)
+    p_b7, p7 = plain_ms(lambda: bvh.attr_fetch_plain(*args7, **kw7))
+    err7 = float((rows7 - p7).abs().max())
+    rows_equal = bool(torch.equal(rows7, p7))
+    fetch_ms, ia7 = cuda_ms(lambda: intersect.wavefront_fetch_attrs(ts, h7), 3)
+    hits7 = int(h7.hit.sum())
+    row_b = attr_row_bytes(bool(ts.any_normal_maps))
+    bnd7 = bound_ms(hits7 * (11 * 5 + ROTATE_OPS),
+                    hits7 * (row_b + 12) + rows7.numel() * 4
+                    + int(args7[0].shape[0]) * 20 + n_inst * 40)
+    out["b7"] = (err7, t_b7, p_b7, bnd7, by7)
+    gn2 = sum(c * c for c in ia7.gn)[h7.hit]
+    emit("b7_two_level_vs_plain", scene=tag, hits=hits7,
+         item_capacity=int(args7[0].shape[0]), rows_equal=rows_equal,
+         max_abs_err=err7, wavefront_fetch_attrs_ms=fetch_ms,
          gn_unit_max_err=float((gn2 - 1.0).abs().max()))
-    assert routes_equal and float((gn2 - 1.0).abs().max()) <= 1e-5
+    # 1 / sqrt is IEEE in the kernel and in PyTorch: equal rows.
+    assert rows_equal and float((gn2 - 1.0).abs().max()) <= 1e-5
 
     # closest_hit on both routes against the brute-force reference.
     step = max(B // brute_rays, 1)
@@ -695,18 +752,17 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
 def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                      timed_accums=3):
     """The two-level route: the 100,000-instance field's build, kernels and
-    main path, and the 2,000-instance field that takes the in-kernel
-    instance routes. Returns their kernel entries and the 100k field's
-    (scene, camera rays, W, eps) for the B6' phase."""
+    main path, and the 2,000-instance field that takes B4's resident mode.
+    Returns their kernel entries and the 100k field's (scene, camera rays,
+    W, eps) for the B6' phase."""
 
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.io import synthetic
     from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
 
-    counters = (bvh.LAUNCHES, bvh.INST_LAUNCHES, packet.LAUNCHES,
-                packet.MODE_LAUNCHES, dk.LAUNCHES, mega.LAUNCHES,
-                intersect.HOST_SYNCS)
+    counters = (bvh.LAUNCHES, packet.LAUNCHES, packet.MODE_LAUNCHES,
+                dk.LAUNCHES, mega.LAUNCHES, intersect.HOST_SYNCS)
     baked = lt.BakedPathtraceParams(max_bounces=bounces, samples_per_pixel=spp)
     scenes = {}
     for tag, n in (("instanced100k", FIELD_INSTANCES),
@@ -721,9 +777,7 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
         build_s = time.perf_counter() - t0
         routes = dict(
             packet_eligible=intersect.packet_eligible(ts),
-            b4_mode="resident" if packet.tables_resident(ts) else "stream",
-            b6_b7_route="pytorch_transform" if intersect._huge_inst(ts)
-            else "instance_word")
+            b4_mode="resident" if packet.tables_resident(ts) else "stream")
         emit("instanced_build", scene=tag, instances=ts.num_instances,
              generate_s=gen_s, build_scene_torch_s=build_s, sl_count=ts.sl_count,
              msl_count=ts.msl_count, sl_stride=ts.sl_stride,
@@ -732,10 +786,10 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
              **routes)
         assert ts.use_bvh and ts.two_level and routes["packet_eligible"]
         scenes[tag] = (ts, cams, routes)
-    assert scenes["instanced100k"][2] == dict(
-        packet_eligible=True, b4_mode="stream", b6_b7_route="pytorch_transform")
-    assert scenes["instanced2k"][2] == dict(
-        packet_eligible=True, b4_mode="resident", b6_b7_route="instance_word")
+    assert scenes["instanced100k"][2] == dict(packet_eligible=True,
+                                              b4_mode="stream")
+    assert scenes["instanced2k"][2] == dict(packet_eligible=True,
+                                            b4_mode="resident")
 
     kernels = []
     state = None
@@ -760,7 +814,6 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
         wall = time.perf_counter() - t0
         launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
         by_mode = dict(packet.MODE_LAUNCHES)
-        with_inst = dict(bvh.INST_LAUNCHES)
         dense_launches = {**dk.LAUNCHES, **mega.LAUNCHES}
         emit("main_path_instanced", scene=tag, width=width, height=height,
              integrator="STANDARD", bounces=bounces, spp=spp,
@@ -768,7 +821,7 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
              s_per_accumulation=wall / accums, rays=stats["rays"],
              mrays_per_s=stats["rays"] / wall / 1e6,
              launches_per_accumulation={k: v / accums for k, v in launches.items()},
-             b4_launches_by_mode=by_mode, launches_with_instance_word=with_inst,
+             b4_launches_by_mode=by_mode,
              wavefront_host_syncs_per_accumulation=(
                  intersect.HOST_SYNCS["wavefront"] / accums),
              dense_launches=dense_launches, image_mean=float(img.mean()),
@@ -780,9 +833,6 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
             assert launches[key] > 0, launches
         b4_mode = routes["b4_mode"]
         assert by_mode[b4_mode] == launches["packet_traverse"], by_mode
-        inst_word = routes["b6_b7_route"] == "instance_word"
-        for key, n_with in with_inst.items():
-            assert n_with == (launches[key] if inst_word else 0), with_inst
         if big:
             state = (ts, *cam_batch)
             prof = device_profile(lambda: lt.render_progressive(
@@ -790,12 +840,8 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
             emit("main_path_instanced_profile", scene=tag, accumulations=1,
                  card=smi, device_busy_share_of_timed_wall=(
                      prof["device_busy_ms"] * 1e-3 * accums / wall), **prof)
+            emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi)
 
-        route = "pre" if not inst_word else "inst"
-        b6_name = ("rays moved to mesh space in PyTorch" if route == "pre"
-                   else "instance word")
-        b7_name = ("mesh space, rows rotated in PyTorch" if route == "pre"
-                   else "instance word")
         kernels += [
             entry(f"B4 packet_traverse (two-level, {b4_mode}; {tag})",
                   "packet.cu", "lupinpathtracer_tpu/kernels/pallas_packet.py:1011",
@@ -803,20 +849,17 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
             entry(f"B5 top_traverse ({tag})", "bvh.cu",
                   "lupinpathtracer_tpu/kernels/pallas_bvh.py:344", launches["top_traverse"],
                   *meas["b5"]),
-            entry(f"B6 pair_intersect ({b6_name}; {tag})", "pair_kernel.cuh",
+            entry(f"B6 pair_intersect (instance word; {tag})", "pair_intersect.cuh",
                   "lupinpathtracer_tpu/kernels/pallas_bvh.py:665", launches["pair_intersect"],
-                  *meas["b6_" + route]),
-            entry(f"B7 attr_fetch ({b7_name}; {tag})", "bvh.cu",
+                  *meas["b6"]),
+            entry(f"B7 attr_fetch (instance word; {tag})", "bvh.cu",
                   "lupinpathtracer_tpu/kernels/pallas_bvh.py:896", launches["attr_fetch"],
-                  *meas["b7_" + route]),
+                  *meas["b7"]),
         ]
-        other = "inst" if route == "pre" else "pre"
-        other_b4 = "resident" if b4_mode == "stream" else "stream"
-        off = ("b4_" + other_b4, "b6_" + other, "b7_" + other)
-        emit("two_level_off_route_times", scene=tag, card=smi, ms={
-            key: meas[key][1] for key in off},
-             bound_ms={key: meas[key][3][0] for key in off},
-             timed_by={key: meas[key][4] for key in off})
+        other = "b4_" + ("resident" if b4_mode == "stream" else "stream")
+        emit("two_level_off_route_times", scene=tag, card=smi,
+             ms={other: meas[other][1]}, bound_ms={other: meas[other][3][0]},
+             timed_by={other: meas[other][4]})
     return kernels, state
 
 
@@ -829,10 +872,12 @@ VARIANT_OPS = {"V0": PAIR_OPS, "V1": 85, "V2": PAIR_OPS, "V3": 85,
 
 
 def prof_pair_phase(states, smi, reps=5):
-    """B6': the pair-kernel variants on the round-1 state of each camera
-    batch in `states` ({name: (scene, ro, rd, W, eps)}). V0 and V4 must
-    equal B6 bit for bit and each variant its plain version on what it
-    returns. Returns one kernel entry per variant and state."""
+    """B6 and B6': the redesigned kernel and the pair-kernel variants on the
+    round-1 state of each camera batch in `states` ({name: (scene, ro, rd,
+    W, eps)}), timed in turns: B6, V0-V5, GRID, B6, V0. V0 (B6's earlier
+    design) and V4 must equal B6 bit for bit and each variant its plain
+    version on what it returns. Returns one kernel entry for B6 and one per
+    variant and state, each with the launches its counter took here."""
 
     from lupinpathtracer_tpu_torch.kernels import bvh
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
@@ -843,11 +888,37 @@ def prof_pair_phase(states, smi, reps=5):
         args, kw, info = prof_pair.round1_state(scene, ro, rd)
         pairs, items, SP = int(info["n_real"]), int(kw["n_items"]), scene.sl_stride
         msl_used = int(torch.unique(args[1][:items]).numel())
-        b6 = bvh.pair_intersect(*args, W, eps, **kw)
+        two_level = kw["inst"] is not None
         reset(bvh.LAUNCHES)
-        timed = prof_pair.time_variants(args, W, eps, kw, reps)
-        assert bvh.LAUNCHES["pair_intersect_variant"] == len(timed) * (reps + 1)
-        assert bvh.LAUNCHES["pair_intersect"] == 0
+        n_launch = {}
+
+        def variant_ms(v):
+            before = bvh.LAUNCHES["pair_intersect_variant"]
+            res = kernel_ms(lambda: prof_pair.run_variant(v, args, W, eps, kw),
+                            "pair_kernel", reps)
+            n_launch[v] = n_launch.get(v, 0) + bvh.LAUNCHES["pair_intersect_variant"] - before
+            return res
+
+        b6_ms = [kernel_ms(lambda: bvh.pair_intersect(*args, W, eps, **kw),
+                           "pair_hit_kernel", reps)]
+        timed = {v: variant_ms(v) for v in prof_pair.VARIANTS}
+        b6_ms.append(kernel_ms(lambda: bvh.pair_intersect(*args, W, eps, **kw),
+                               "pair_hit_kernel", reps))
+        v0_again = variant_ms("V0")
+        b6 = b6_ms[-1][1]
+        b6_launches = bvh.LAUNCHES["pair_intersect"]
+        p_ms, p = plain_ms(lambda: bvh.pair_intersect_plain(*args, W, eps, **kw))
+        assert all(bool(torch.equal(a, b)) for a, b in zip(b6, p))
+        bytes6 = items * (20 if two_level else 16) + pairs * (24 + 20) + msl_used * SP * 160
+        ops6 = pairs * SP * PAIR_OPS + (pairs * XFORM_OPS if two_level else 0)
+        b6_by = [x[2] for x in b6_ms]
+        entries.append(entry(
+            f"B6 pair_intersect ({name} round 1)", "pair_intersect.cuh",
+            "lupinpathtracer_tpu/kernels/pallas_bvh.py:665", b6_launches,
+            max(float((a - b).abs().max()) for a, b in zip(b6[:4], p[:4])),
+            sum(x[0] for x in b6_ms) / 2, p_ms, bound_ms(ops6, bytes6),
+            "device_records" if all(b == "device_records" for b in b6_by) else "events",
+            launches_in="round-1 timing"))
         report = {}
         for variant, (ms, k, by) in timed.items():
             pargs = args if variant != "GRID" else (*args[:3], args[2], *args[4:])
@@ -867,18 +938,28 @@ def prof_pair_phase(states, smi, reps=5):
             if variant == "GRID":
                 assert bool((k[0] == dk.F32_MAX).all())
             live = variant != "GRID"
-            bnd = bound_ms(pairs * SP * VARIANT_OPS[variant],
-                           items * 16 + (pairs * (24 + 20)
-                                         + msl_used * SP * 160 if live else 0))
+            bnd = bound_ms(pairs * SP * VARIANT_OPS[variant]
+                           + (pairs * XFORM_OPS if two_level and live else 0),
+                           items * (20 if two_level else 16)
+                           + (pairs * (24 + 20) + msl_used * SP * 160 if live else 0))
             report[variant] = ms
+            v_ms = (ms + v0_again[0]) / 2 if variant == "V0" else ms
+            if variant == "V0":
+                by = by if v0_again[2] == by else "events"
             entries.append(entry(
-                f"B6' pair variant {variant} ({name} round 1)",
-                "pair_variants.cu" if variant not in ("V0", "GRID")
-                else "pair_kernel.cuh", "tools/prof_pair.py:276", reps + 1,
-                err, ms, p_ms, bnd, by))
-        emit("prof_pair", state=name, pairs=pairs, items=items, stride=SP,
+                f"B6' pair variant {variant} ({name} round 1)"
+                + (": B6's earlier design" if variant == "V0" else ""),
+                {"V0": "pair_kernel.cuh", "GRID": "pair_kernel.cuh"}.get(
+                    variant, "pair_variants.cu"),
+                "tools/prof_pair.py:276", n_launch[variant],
+                err, v_ms, p_ms, bnd, by, launches_in="round-1 timing"))
+        emit("prof_pair", state=name, items=items, stride=SP,
              mesh_superleaves=msl_used, reps=reps, ms=report,
-             v0_equals_b6=True, card=smi)
+             b6_ms=[x[0] for x in b6_ms], v0_ms=[timed["V0"][0], v0_again[0]],
+             b6_over_v0=sum(x[0] for x in b6_ms) / (timed["V0"][0] + v0_again[0]),
+             v0_equals_b6=True, card=smi,
+             **pair_live_shares(args[0], args[2], args[3], kw["n_items"],
+                                int(info["skey"].shape[0])))
     return entries
 
 
@@ -952,9 +1033,12 @@ def main() -> int:
 
     # -- 3. B3 against its plain version (the port's pathtrace_spp) ------------
     glossy_scene = lt.build_scene_torch(glossy_cornell(lt, builtin)[0], device=dev)
+    sphere_scene = lt.build_scene_torch(sphere_cornell(lt, builtin)[0], device=dev)
+    assert not sphere_scene.use_bvh and sphere_scene.num_world_tris == 556
     gx64, gy64 = _pixel_batch(64, 64, 0, 0, dev)
     pix64 = gy64 * 64 + gx64
-    for name, sc in (("cornell", scene), ("cornell_glossy_gltfpbr", glossy_scene)):
+    for name, sc in (("cornell", scene), ("cornell_glossy_gltfpbr", glossy_scene),
+                     ("cornell_sphere_556_tris", sphere_scene)):
         Wsc = intersect.scene_tri_matrix(sc)
         for ptype in (lt.PathtraceType.STANDARD, lt.PathtraceType.NAIVE):
             assert mega.applicable(sc, ptype)
@@ -965,7 +1049,8 @@ def main() -> int:
             acc_p, nt_p = integrators.pathtrace_spp(sc, ctx, *args)
             torch.cuda.synchronize()
             emit("b3_vs_plain", scene=name, ptype=ptype.name, pixels=4096,
-                 spp=4, bounces=8, **compare_paths(acc_k, nt_k, acc_p, nt_p))
+                 spp=4, bounces=8, tris=sc.num_world_tris,
+                 **compare_paths(acc_k, nt_k, acc_p, nt_p))
 
     # -- 4. main path ----------------------------------------------------------
     # Route 1 (the Cornell box inside the megakernel gate): B3.
@@ -1063,7 +1148,8 @@ def main() -> int:
         lambda: integrators.pathtrace_spp(scene, ctx, *b3_args), 1)
     res_b3 = compare_paths(acc_k, nt, acc_p, nt_p)
     emit("kernels_vs_plain_main_shapes", b1=res_b1, b2=res_b2,
-         b3=dict(pixels=B, spp=64, bounces=8, max_radiance=100.0, **res_b3))
+         b3=dict(pixels=B, spp=64, bounces=8, max_radiance=100.0,
+                 warp_efficiency=warp_efficiency(nt), **res_b3))
     segs = int(nt.sum())
     Tl = scene.lt_v0.shape[1]
     aw = scene.wt_attr.shape[1]

@@ -20,9 +20,9 @@
 // The demand histogram is built in shared memory with atomics and flushed
 // once per block.
 //
-// B6. The kernel, its bound and its design are in pair_kernel.cuh, shared
-// with the ablation variants of pair_variants.cu; this file instantiates
-// the shipped one (V0, 256-triangle stages).
+// B6. The kernel, its bound and its design are in pair_intersect.cuh (one
+// thread per sorted position); pair_kernel.cuh keeps the earlier design (a
+// block per work item) as the baseline of the ablation in pair_variants.cu.
 //
 // B7. What bounds it: bytes (one 512-byte attribute row read and 64 or 96
 // bytes written per winner). Design: one block per work item, one thread
@@ -39,7 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "bvh_common.cuh"
-#include "pair_kernel.cuh"
+#include "pair_intersect.cuh"
 
 namespace {
 
@@ -192,9 +192,11 @@ extern "C" int lupin_top_traverse(const float* tab, const float* rox,
 }
 
 // Work items blk/msl/lo/hi (n_cap,), n_items (1,) on the device; sorted
-// rays (P,); W (4, 10, T); inst (n_cap,) with txf (n_inst, 12), or both
-// null. Outputs (P,), prefilled with a miss by the caller. One block of PB
-// threads per item.
+// rays (P,); W the packed coefficient table (T / 4, 40, 4) (kernels/bvh.py
+// pair_table); inst (n_cap,) with txf (n_inst, 12), or both null. Outputs
+// (P,), prefilled with a miss by the caller. Items are ordered by the
+// positions they cover; a persistent grid walks 256-position tiles. part
+// (5 x cap x 256) and cnt (cap,), zeroed, are the scratch of a split.
 extern "C" int lupin_pair_intersect(const int* blk, const int* msl,
                                     const int* lo, const int* hi,
                                     const int* n_items, const int* inst,
@@ -205,11 +207,12 @@ extern "C" int lupin_pair_intersect(const int* blk, const int* msl,
                                     long long T, int n_cap, int SP, int PB,
                                     int P, float eps, float* t, float* u,
                                     float* v, float* det, int* li,
+                                    float* part, int* cnt, int cap,
                                     void* stream) {
   const PairArgs a{blk, msl, lo,  hi, n_items, inst, txf, rox, roy,
                    roz, rdx, rdy, rdz, W,      T,    n_cap, SP, PB,
                    P,   eps, t,   u,   v,      det,  li};
-  return launch_pair<PAIR_V0, PAIR_TC>(a, stream);
+  return launch_pair_intersect(a, PairSplit{part, cnt, cap}, stream);
 }
 
 // Items as above; li/hu/hv (P,); A (n_msl, SP, aw); inst (n_cap,) with nrm

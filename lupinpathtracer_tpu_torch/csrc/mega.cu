@@ -14,11 +14,10 @@
 // and in-place regeneration until every lane has run its spp samples.
 //
 // What bounds it on an H100: operations. Per path segment a lane spends
-// ~90 f32 operations per scene triangle on the closest hit (the Cornell box
+// ~81 f32 operations per scene triangle on the closest hit (the Cornell box
 // has 36) and a few hundred more on shading, light sampling and the light
 // pdf, against ~50 bytes of device-memory traffic per pixel for the whole
-// render (pixel ids in, four accumulators out). The scene tables (a few KB)
-// stay in L1/L2.
+// render (pixel ids in, four accumulators out).
 //
 // Design. The TPU kernel runs each block of 1024 pixel lanes in lockstep
 // over a while-loop, with the intersection as MXU matmuls and every table
@@ -26,13 +25,47 @@
 // card each thread owns one pixel lane and runs its own loop with
 // data-dependent control flow (the reference's own WGSL design): a lane that
 // finishes a sample respawns its next one at once, so the lockstep tail is
-// a warp's, not a block's. Table lookups are plain loads. Everything is f32
-// with separately rounded multiplies and adds (-fmad=false), IEEE division
-// and square root, i.e. the `precise=True` semantics of the Pallas kernel
-// (pallas_mega.py:27-32), not its hand-split bf16 products.
+// a warp's, not a block's. What held that design back was the closest hit:
+// 40 scalar loads per triangle test against ~81 operations, and an IEEE
+// divide on every triangle. Now:
+// - The triangle table is packed once per matrix (kernels/bvh.py
+//   pair_table, B6's layout) into groups of four triangles, (ceil(T/4),
+//   40, 4): one 16-byte load reads one coefficient of four triangles, 10
+//   loads per triangle, and the four are
+//   evaluated together (16 independent sums), then folded into the running
+//   minimum in index order. A block stages the table in shared memory when
+//   it is at most TRI_SMEM_TRIS triangles (the Cornell box: 36, 5.8 KB);
+//   above that every lane reads the same group at the same time through
+//   L1, which serves the broadcast (the gate admits 2,048 triangles,
+//   320 KB, more than a block can hold).
+// - The light table (v0, area | e1 | e2 per light triangle, 48 bytes) is
+//   packed and staged the same way, for the light pdf's loop over every
+//   light triangle and for light sampling.
+// - Before the divide a triangle is dropped when its numerators against
+//   det already make it invalid (tri_test.cuh, the same test as B6's): it
+//   drops only triangles the reference rejects, and only for eps > 0.
+// - Occupancy from measurement (tools/prof_mega.py; PERF.md has the
+//   sweep, NVIDIA H100 80GB HBM3 at 700 W): asked for at least 1 block
+//   per SM, ptxas gives the shared-table build 87 registers (5 blocks of
+//   128 threads per SM), asked for none 72 (7 blocks); asking for 8 blocks
+//   per SM (64 registers, 36 bytes of spills) was the fastest of those and
+//   10, 12 and 16 on the Cornell main path, 10% under 1 block and 5% under
+//   none. TRI_SMEM_TRIS keeps 8 blocks' tables in an SM's 228 KB:
+//   8 x (20 KB + 3 KB of lights + 1 KB reserved).
+// - The lockstep tail: a warp waits for its lane with the most path
+//   segments; on the Cornell main path the warps' efficiency (the sum of
+//   n_traced over 32 x the sum of each warp's largest) is 90% (chip_smoke
+//   prints it), so pixels are not handed to threads dynamically.
+// Everything is f32 with separately rounded multiplies and adds
+// (-fmad=false), IEEE division and square root, i.e. the `precise=True`
+// semantics of the Pallas kernel (pallas_mega.py:27-32), not its
+// hand-split bf16 products; every sum keeps the plain version's order, so
+// the packing changes no bit of the result.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tri_test.cuh"
 
 // Scalar arguments, mirrored by kernels/mega.py::_Params. Outside the
 // anonymous namespace: the exported entry point takes a pointer to it.
@@ -52,6 +85,9 @@ constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;  // float(2 * pi)
 constexpr float MIN_ROUGHNESS = (float)(0.03 * 0.03);
 constexpr int THREADS = 128;
+// Largest triangle table staged in shared memory (20 KB).
+constexpr int TRI_SMEM_TRIS = 128;
+constexpr int LIGHT_COLS = 12;  // v0.xyz, area, e1.xyz, 0, e2.xyz, 0
 
 // Material types (core/types.py) and packed attribute columns
 // (kernels/dense_intersect.py ATTR_*).
@@ -177,38 +213,61 @@ __device__ void camera_ray(const Params& p, int gx, int gy, uint32_t& s,
 
 // ---------------------------------------------------------- closest hit ----
 // kernels/dense_intersect.py (B2's arithmetic): R = [d, o x d, o, 1] dotted
-// with the (4,10,T) coefficients in order k = 0..9, strict-< argmin.
+// with the coefficients in order k = 0..9, strict-< argmin, here over the
+// packed (Tg, 40, 4) groups; padding triangles are all zero and never
+// valid.
 
-__device__ void closest_hit(const float* __restrict__ W, int T, float eps,
-                           F3 ro, F3 rd, float& bt, float& bu, float& bv,
-                           int& bidx) {
+template <bool SMEM>
+__device__ __forceinline__ float4 ld4(const float4* p) {
+  if constexpr (SMEM) return *p;
+  return __ldg(p);
+}
+
+template <bool SMEM>
+__device__ __forceinline__ void closest_hit(const float4* __restrict__ Wg, int Tg, float eps,
+                            F3 ro, F3 rd, float& bt, float& bu, float& bv,
+                            int& bidx) {
   const F3 c = cross(ro, rd);
   const float r[10] = {rd.x, rd.y, rd.z, c.x, c.y, c.z, ro.x, ro.y, ro.z, 1.0f};
+  const bool pre = eps > 0.0f;
   bt = F32_MAX;
   bu = 0.0f;
   bv = 0.0f;
   bidx = 0;
-  for (int j = 0; j < T; ++j) {
-    float m[4];
+  for (int g = 0; g < Tg; ++g) {
+    const float4* w = Wg + (size_t)g * 40;
+    float4 m4[4];
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
-      const float* w = W + (size_t)cc * 10 * T + j;
-      float acc = r[0] * __ldg(w);
+      const float4 x = ld4<SMEM>(w + cc * 10);
+      float4 acc = make_float4(r[0] * x.x, r[0] * x.y, r[0] * x.z, r[0] * x.w);
 #pragma unroll
-      for (int k = 1; k < 10; ++k) acc = acc + r[k] * __ldg(w + (size_t)k * T);
-      m[cc] = acc;
+      for (int k = 1; k < 10; ++k) {
+        const float4 y = ld4<SMEM>(w + cc * 10 + k);
+        acc.x = acc.x + r[k] * y.x;
+        acc.y = acc.y + r[k] * y.y;
+        acc.z = acc.z + r[k] * y.z;
+        acc.w = acc.w + r[k] * y.w;
+      }
+      m4[cc] = acc;
     }
-    const float d = 1.0f / m[0];
-    const float t = m[3] * d;
-    const float u = m[1] * d;
-    const float v = m[2] * d;
-    const bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= eps);
-    const float tt = valid ? t : F32_MAX;
-    if (tt < bt) {
-      bt = tt;
-      bu = u;
-      bv = v;
-      bidx = j;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float det = lupin_tri::lane_of(m4[0], k), nu = lupin_tri::lane_of(m4[1], k);
+      const float nv = lupin_tri::lane_of(m4[2], k), nt = lupin_tri::lane_of(m4[3], k);
+      if (pre && lupin_tri::surely_invalid(det, nu, nv, nt)) continue;
+      const float d = 1.0f / det;
+      const float t = nt * d;
+      const float u = nu * d;
+      const float v = nv * d;
+      const bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= eps);
+      const float tt = valid ? t : F32_MAX;
+      if (tt < bt) {
+        bt = tt;
+        bu = u;
+        bv = v;
+        bidx = 4 * g + k;
+      }
     }
   }
 }
@@ -457,10 +516,7 @@ __device__ float sample_bsdfcos_pdf(const Mat& m, int mask, F3 n, F3 o, F3 i) {
 // on the triangle; the pdf is the exact sum over all light triangles.
 
 struct Lights {
-  const float* v0;  // (3, Tl) component-major
-  const float* e1;
-  const float* e2;
-  const float* area;  // (Tl,) area of each triangle's light
+  const float* tab;  // (Tl, LIGHT_COLS) packed light table, staged per block
   const float* thresh;
   const int* alias;
   const int* alias_offset;  // (L,)
@@ -468,9 +524,21 @@ struct Lights {
   const int* tri_offset;
 };
 
-__device__ F3 sample_light(const Params& p, const Lights& L, F3 pos, uint32_t& s) {
+// Light triangle i's v0, e1, e2 and its light's area from the packed row.
+__device__ __forceinline__ void light_tri(const float* row, F3& v0, F3& e1,
+                                          F3& e2, float& area) {
+  const float4 a = *reinterpret_cast<const float4*>(row);
+  const float4 b = *reinterpret_cast<const float4*>(row + 4);
+  const float4 c = *reinterpret_cast<const float4*>(row + 8);
+  v0 = f3(a.x, a.y, a.z);
+  area = a.w;
+  e1 = f3(b.x, b.y, b.z);
+  e2 = f3(c.x, c.y, c.z);
+}
+
+__device__ F3 sample_light(const Params& p, const Lights& L, const float* lt,
+                           F3 pos, uint32_t& s) {
   const int nl = p.num_lights;
-  const int Tl = p.n_light_tris;
   const float r_pick = next_f32(s);
   const int pick = min((int)(r_pick * (float)nl), nl - 1);
   const float r_bin = next_f32(s);
@@ -487,21 +555,21 @@ __device__ F3 sample_light(const Params& p, const Lights& L, F3 pos, uint32_t& s
   const float tu = 1.0f - sq;
   const float tv = rb * sq;
   const int gt = __ldg(L.tri_offset + li) + tri;
-  const F3 v0 = f3(__ldg(L.v0 + gt), __ldg(L.v0 + Tl + gt), __ldg(L.v0 + 2 * Tl + gt));
-  const F3 e1 = f3(__ldg(L.e1 + gt), __ldg(L.e1 + Tl + gt), __ldg(L.e1 + 2 * Tl + gt));
-  const F3 e2 = f3(__ldg(L.e2 + gt), __ldg(L.e2 + Tl + gt), __ldg(L.e2 + 2 * Tl + gt));
+  F3 v0, e1, e2;
+  float area;
+  light_tri(lt + (size_t)gt * LIGHT_COLS, v0, e1, e2, area);
   const F3 q = add(add(v0, mul(e1, tu)), mul(e2, tv));
   return normalize(sub(q, pos));
 }
 
 // intersect._ray_tri per light triangle, summed in triangle order.
-__device__ float lights_pdf(const Params& p, const Lights& L, F3 pos, F3 inc) {
+__device__ float lights_pdf(const Params& p, const float* lt, F3 pos, F3 inc) {
   const int Tl = p.n_light_tris;
   float pdf = 0.0f;
   for (int i = 0; i < Tl; ++i) {
-    const F3 v0 = f3(__ldg(L.v0 + i), __ldg(L.v0 + Tl + i), __ldg(L.v0 + 2 * Tl + i));
-    const F3 e1 = f3(__ldg(L.e1 + i), __ldg(L.e1 + Tl + i), __ldg(L.e1 + 2 * Tl + i));
-    const F3 e2 = f3(__ldg(L.e2 + i), __ldg(L.e2 + Tl + i), __ldg(L.e2 + 2 * Tl + i));
+    F3 v0, e1, e2;
+    float area;
+    light_tri(lt + i * LIGHT_COLS, v0, e1, e2, area);
     const F3 n = cross(e1, e2);
     const F3 rov0 = sub(pos, v0);
     const F3 q = cross(rov0, inc);
@@ -514,7 +582,7 @@ __device__ float lights_pdf(const Params& p, const Lights& L, F3 pos, F3 inc) {
     t = valid ? t : F32_MAX;
     const F3 n_hat = normalize(n);
     const float cos_theta = fabsf(dot(inc, n_hat));
-    const float term = (t * t) / cmin_lo(cos_theta * __ldg(L.area + i), 1e-20f);
+    const float term = (t * t) / cmin_lo(cos_theta * area, 1e-20f);
     pdf = pdf + (valid ? term : 0.0f);
   }
   return pdf / (float)p.num_lights;
@@ -529,12 +597,30 @@ __device__ F3 clamp_radiance(F3 r, float max_radiance) {
   return mul(r, scale);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Dynamic shared memory: the light table (Tl x 48 B), then, with SMEM, the
+// triangle table (Tg x 640 B). At least 8 blocks per SM: the fastest
+// setting of tools/prof_mega.py's sweep (the note above), which rebuilds
+// this file with the second argument changed.
+template <bool SMEM>
+__global__ void __launch_bounds__(THREADS, 8)
 mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
-            const int* __restrict__ gys, const float* __restrict__ W,
+            const int* __restrict__ gys, const float4* __restrict__ Wg,
             const float* __restrict__ A, Lights L, float* __restrict__ acc_x,
             float* __restrict__ acc_y, float* __restrict__ acc_z,
             int* __restrict__ n_traced_out) {
+  extern __shared__ __align__(16) float4 tabs[];
+  const int Tg = (p.n_tris + 3) / 4;
+  const int nl4 = p.n_light_tris * (LIGHT_COLS / 4);
+  const float4* lsrc = reinterpret_cast<const float4*>(L.tab);
+  for (int i = threadIdx.x; i < nl4; i += THREADS) tabs[i] = __ldg(lsrc + i);
+  const float4* W = Wg;
+  if constexpr (SMEM) {
+    for (int i = threadIdx.x; i < Tg * 40; i += THREADS) tabs[nl4 + i] = __ldg(Wg + i);
+    W = tabs + nl4;
+  }
+  __syncthreads();
+  const float* lt = reinterpret_cast<const float*>(tabs);
+
   const int lane = blockIdx.x * THREADS + threadIdx.x;
   if (lane >= p.n_pix) return;
   const uint32_t px = (uint32_t)pix[lane];
@@ -555,7 +641,7 @@ mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
     ++n_traced;
     float t, u, v;
     int idx;
-    closest_hit(W, p.n_tris, p.eps, ro, rd, t, u, v, idx);
+    closest_hit<SMEM>(W, Tg, p.eps, ro, rd, t, u, v, idx);
     bool alive = t < F32_MAX;
 
     if (alive) {
@@ -577,9 +663,9 @@ mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
       F3 incoming;
       float pdf;
       if (nee) {
-        const F3 ldir = have_lights ? sample_light(p, L, pos, s) : f3(0.0f, 0.0f, 0.0f);
+        const F3 ldir = have_lights ? sample_light(p, L, lt, pos, s) : f3(0.0f, 0.0f, 0.0f);
         incoming = r_choice < 0.5f ? bdir : ldir;
-        const float lp = have_lights ? lights_pdf(p, L, pos, incoming) : 0.0f;
+        const float lp = have_lights ? lights_pdf(p, lt, pos, incoming) : 0.0f;
         pdf = 0.5f * sample_bsdfcos_pdf(m, p.type_mask, normal, outgoing, incoming) +
               0.5f * lp;
       } else {
@@ -630,21 +716,38 @@ mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
   n_traced_out[lane] = n_traced;
 }
 
+template <bool SMEM>
+int launch_mega(const Params& p, const int* pix, const int* gx, const int* gy,
+                const float4* Wg, const float* A, const Lights& L, float* acc_x,
+                float* acc_y, float* acc_z, int* n_traced, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * LIGHT_COLS * p.n_light_tris +
+                      (SMEM ? sizeof(float4) * 40 * ((p.n_tris + 3) / 4) : 0);
+  const int blocks = (p.n_pix + THREADS - 1) / THREADS;
+  mega_kernel<SMEM><<<blocks, THREADS, smem, stream>>>(
+      p, pix, gx, gy, Wg, A, L, acc_x, acc_y, acc_z, n_traced);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Wg: the packed triangle table (ceil(n_tris / 4), 40, 4); lt: the packed
+// light table (n_light_tris, 12); both 16-byte aligned (kernels/mega.py).
 extern "C" int lupin_mega_pathtrace(const Params* params, const int* pix,
-                                    const int* gx, const int* gy, const float* W,
-                                    const float* A, const float* lt_v0,
-                                    const float* lt_e1, const float* lt_e2,
-                                    const float* lt_area, const float* la_thresh,
-                                    const int* la_alias, const int* alias_offset,
-                                    const int* alias_size, const int* tri_offset,
-                                    float* acc_x, float* acc_y, float* acc_z,
-                                    int* n_traced, void* stream) {
-  const Lights L{lt_v0, lt_e1, lt_e2, lt_area, la_thresh, la_alias,
-                 alias_offset, alias_size, tri_offset};
-  const int blocks = (params->n_pix + THREADS - 1) / THREADS;
-  mega_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      *params, pix, gx, gy, W, A, L, acc_x, acc_y, acc_z, n_traced);
-  return (int)cudaGetLastError();
+                                    const int* gx, const int* gy, const float* Wg,
+                                    const float* A, const float* lt,
+                                    const float* la_thresh, const int* la_alias,
+                                    const int* alias_offset, const int* alias_size,
+                                    const int* tri_offset, float* acc_x,
+                                    float* acc_y, float* acc_z, int* n_traced,
+                                    void* stream) {
+  if ((((uintptr_t)Wg) | ((uintptr_t)lt)) & 15u) return (int)cudaErrorInvalidValue;
+  if (params->n_light_tris > 64) return (int)cudaErrorInvalidValue;  // the gate's
+  const Lights L{lt, la_thresh, la_alias, alias_offset, alias_size, tri_offset};
+  const float4* W4 = reinterpret_cast<const float4*>(Wg);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (params->n_tris <= TRI_SMEM_TRIS)
+    return launch_mega<true>(*params, pix, gx, gy, W4, A, L, acc_x, acc_y, acc_z,
+                             n_traced, st);
+  return launch_mega<false>(*params, pix, gx, gy, W4, A, L, acc_x, acc_y, acc_z,
+                            n_traced, st);
 }

@@ -1,10 +1,12 @@
-// Kernel B6 and its ablation variants B6': closest hit of superleaf-sorted
+// The ablation variants B6' of kernel B6: closest hit of superleaf-sorted
 // rays against their work item's superleaf, one template for all of them.
 //
-// Replaces lupinpathtracer_tpu/kernels/pallas_bvh.py::_pair_kernel (:385,
-// pallas_call at :665) and the modified copies of it that
-// tools/prof_pair.py::make_kernel builds (pallas_call at :276). bvh.cu
-// instantiates the shipped kernel (V0, TC = 256); pair_variants.cu the rest.
+// Replaces the modified copies of
+// lupinpathtracer_tpu/kernels/pallas_bvh.py::_pair_kernel that
+// tools/prof_pair.py::make_kernel builds (pallas_call at :276).
+// pair_variants.cu instantiates every variant. V0 is the earlier design of
+// B6 itself, as it shipped before pair_intersect.cuh replaced it, and the
+// yardstick of that redesign: the two agree bit for bit.
 //
 // What bounds it: operations. Each (ray, superleaf) pair costs SP triangles
 // x four 10-term dot products plus the epilogue (~81 f32 operations each);
@@ -26,7 +28,7 @@
 //
 // Variants (tools/prof_pair.py:1-17), each with a plain version in
 // kernels/bvh.py::pair_intersect_plain(variant=):
-//   V0  as shipped.
+//   V0  the earlier B6 (one block per work item).
 //   V1  selection t by rsqrt(det^2) and sign tests instead of the divide;
 //       the winner's t, u, v, det recomputed exactly from its coefficients.
 //   V2  tracks (t, index) only; u, v, det come out zero.
@@ -45,7 +47,7 @@
 namespace lupin_bvh {
 
 constexpr int PAIR_V0 = 0, PAIR_V1 = 1, PAIR_V2 = 2, PAIR_V3 = 3, PAIR_V5 = 5;
-constexpr int PAIR_TC = 256;  // shipped triangles per shared-memory stage (40 KB)
+constexpr int PAIR_TC = 256;  // V0's triangles per shared-memory stage (40 KB)
 
 struct PairArgs {
   const int* blk;

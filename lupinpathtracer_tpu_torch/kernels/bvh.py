@@ -10,10 +10,14 @@ The counterpart of lupinpathtracer_tpu/kernels/pallas_bvh.py:
 - B6 `pair_intersect` (`_pair_kernel`, :665): closest hit of superleaf-sorted
   rays against their work item's superleaf, local triangle index out; with
   an instance word per item (two-level scenes) the item's rays first move
-  to mesh space.
+  to mesh space. The kernel (csrc/pair_intersect.cuh) runs one thread per
+  sorted position, finds the item covering it (`pair_item_map` is that
+  lookup in PyTorch) and reads the coefficients packed once per matrix
+  (`pair_table`).
 - B6' `pair_intersect_variant`: the ablation variants of B6
   (tools/prof_pair.py:276 of the JAX repo, `run_variant`), for
-  tools/prof_pair.py of this package.
+  tools/prof_pair.py of this package; V0 is B6's earlier design (a block per
+  work item), equal to B6 bit for bit.
 - B7 `attr_fetch` (`_attr_kernel`, :896): the winner's attribute row,
   interpolated at the hit barycentrics into the compact IA_* rows; with an
   instance word per item, rotated by the instance's normal matrix and given
@@ -28,7 +32,9 @@ arithmetic in the same order.
 Work items (blk, sl, lo, hi) are as in the JAX package: item k covers the
 sorted positions [lo, hi) that fall inside ray block blk (PB lanes), all
 against superleaf sl; items with lo == hi are skipped, and only the first
-`n_items` (a one-element device tensor, so no host sync) are valid.
+`n_items` (a one-element device tensor, so no host sync) are valid. B6's
+kernel also needs them ordered by the positions they cover, each position
+in at most one item, as `intersect._wf_work_items` makes them.
 """
 
 from __future__ import annotations
@@ -89,9 +95,13 @@ PAIR_VARIANTS = ("V0", "V1", "V2", "V3", "V4", "V5")
 # Kernel launches per wrapper (counted only where a kernel is launched).
 LAUNCHES = {"top_traverse": 0, "pair_intersect": 0, "attr_fetch": 0,
             "pair_intersect_variant": 0}
-# Of those, the launches with a per-item instance word (two-level scenes
-# whose instance tables the kernels read themselves).
-INST_LAUNCHES = {"pair_intersect": 0, "attr_fetch": 0}
+
+# Sorted positions per block of B6's kernel (csrc/pair_intersect.cuh
+# PI_THREADS), and the (tile, triangle chunk) units its split scratch holds:
+# a launch of fewer tiles splits each tile's triangles to fill the card.
+PAIR_TILE = 256
+PAIR_SPLIT_UNITS = 4096
+PAIR_SPLIT_MIN = 64
 
 # Ray-triangle pairs per chunk of B6's plain version: bounds its (lanes, SP)
 # temporaries (16 MB each).
@@ -231,6 +241,69 @@ def _item_lanes(blk, lo, hi, n_items, PB, P):
     live = (pos >= l_) & (pos < h) & (pos < P)
     item = torch.arange(n, device=dev)[:, None].expand_as(pos)
     return pos[live], item[live]
+
+
+def pair_item_map(blk, lo, hi, n_items, PB, P):
+    """(P,) int64: per sorted position the item that covers it, -1 where
+    none, found as B6's kernel finds it (csrc/pair_intersect.cuh): the last
+    item whose first covered position max(lo, blk * PB) is at or before the
+    position (among items with equal starts, the last non-empty one), if the
+    position lies below that item's end min(hi, blk * PB + PB, P). Items
+    must be ordered by the positions they cover (bvh.py's module note); then
+    this equals the coverage of `_item_lanes`."""
+
+    n = int(n_items) if n_items is not None else int(blk.shape[0])
+    dev = blk.device
+    b, l_, h = (x[:n].long() for x in (blk, lo, hi))
+    c = torch.maximum(l_, b * PB)
+    e = torch.minimum(torch.minimum(h, b * PB + PB), torch.full_like(h, P))
+    pos = torch.arange(P, device=dev)
+    out = torch.full((P,), -1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    i = torch.searchsorted(c.contiguous(), pos, right=True) - 1
+    k = torch.arange(n, device=dev)
+    last_ne = torch.cummax(torch.where(e > c, k, -1), 0).values
+    ic = i.clamp_min(0)
+    ne = last_ne[ic]
+    pick = torch.where((ne >= 0) & (c[ne.clamp_min(0)] == c[ic]), ne, ic)
+    covered = (i >= 0) & (pos < e[pick])
+    return torch.where(covered, pick, out)
+
+
+def pair_split(SP: int, n_tiles: int, cap: int = PAIR_SPLIT_UNITS):
+    """(KS, KC): how B6's kernel splits each of a launch's n_tiles tiles
+    (csrc/pair_intersect.cuh): fewer tiles than `cap` units split each
+    tile's SP triangles into KS chunks of KC (a multiple of 4, at least
+    PAIR_SPLIT_MIN unless SP is smaller), KS * n_tiles <= cap; chunk c is
+    [c * KC, min(SP, c * KC + KC))."""
+
+    ks = 1
+    if 0 < n_tiles < cap:
+        ks = min(max(SP // PAIR_SPLIT_MIN, 1), cap // n_tiles)
+    kc = (-(-SP // ks) + 3) & ~3
+    return -(-SP // kc), kc
+
+
+def pair_table(W4):
+    """The coefficient table of B6 and B3: the (4, 10, T) matrix packed as
+    (ceil(T / 4), 40, 4) f32, element [g, c * 10 + q, k] = W4[c, q, 4g + k],
+    so that a group of four triangles is 640 contiguous bytes
+    (csrc/pair_intersect.cuh, csrc/mega.cu); the padding triangles past T
+    are all zero (det = 0: never valid). Built once per matrix and kept on
+    it (scenes cache their matrix: intersect.scene_tri_matrix); rebuilt if
+    the matrix was written since."""
+
+    cached = W4.__dict__.get("_pair_table")
+    if cached is not None and cached[0] == W4._version:
+        return cached[1]
+    T = W4.shape[2]
+    Tg = -(-T // 4)
+    flat = W4.new_zeros((40, Tg * 4))
+    flat[:, :T] = W4.reshape(40, T)
+    table = flat.reshape(40, Tg, 4).permute(1, 0, 2).contiguous()
+    W4.__dict__["_pair_table"] = (W4._version, table)
+    return table
 
 
 def mesh_space(m12, ro, rd):
@@ -512,9 +585,12 @@ def _inst_check(inst, n, tabs, what):
 
 
 def _pair_launch(symbol, lib, head, blk, sl, lo, hi, n_items, inst, txf_tab,
-                 ro, rd, W4, eps, SP, pair_block):
+                 ro, rd, W4, eps, SP, pair_block, split=False):
     """Launches a pair kernel entry point (`head`: its leading int
-    arguments) and returns (t, u, v, det, li)."""
+    arguments) and returns (t, u, v, det, li). `split` is B6's launch: the
+    kernel reads pair_table(W4) instead of W4 and gets its split scratch,
+    PAIR_SPLIT_UNITS units of PAIR_TILE partial minima and their
+    counters."""
 
     from . import cuda_build
 
@@ -522,7 +598,9 @@ def _pair_launch(symbol, lib, head, blk, sl, lo, hi, n_items, inst, txf_tab,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * len(head) + [ctypes.c_void_p] * 14
                    + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 5
+                   + ([ctypes.c_void_p] * 2 + [ctypes.c_int] if split else [])
+                   + [ctypes.c_void_p])
     dev = ro.x.device
     P = ro.x.shape[0]
     t = torch.full((P,), F32_MAX, dtype=torch.float32, device=dev)
@@ -531,13 +609,20 @@ def _pair_launch(symbol, lib, head, blk, sl, lo, hi, n_items, inst, txf_tab,
     ins = [x.contiguous() for x in (blk, sl, lo, hi, n_items)]
     tabs = [None, None] if inst is None else [inst.contiguous(),
                                               txf_tab.contiguous()]
-    rays = [x.contiguous() for x in (*ro, *rd, W4)]
+    rays = [x.contiguous() for x in (*ro, *rd, pair_table(W4) if split else W4)]
+    scratch = []
+    if split:
+        cap = PAIR_SPLIT_UNITS
+        part = torch.empty(5 * cap * PAIR_TILE, dtype=torch.float32, device=dev)
+        cnt = torch.zeros(cap, dtype=torch.int32, device=dev)
+        scratch = [part.data_ptr(), cnt.data_ptr(), cap]
     with torch.cuda.device(dev):
         rc = fn(*head, *(x.data_ptr() for x in ins),
                 *(None if x is None else x.data_ptr() for x in tabs),
                 *(x.data_ptr() for x in rays), W4.shape[2], blk.shape[0], SP,
                 pair_block, P, float(eps), t.data_ptr(), u.data_ptr(),
-                v.data_ptr(), det.data_ptr(), li.data_ptr(), _stream(dev))
+                v.data_ptr(), det.data_ptr(), li.data_ptr(), *scratch,
+                _stream(dev))
     cuda_build.check(rc, symbol)
     return t, u, v, det, li
 
@@ -547,6 +632,9 @@ def _pair_check(blk, sl, lo, hi, n_items, ro, rd, W4, SP, inst, txf_tab):
     _f32(W4, *ro, *rd)
     if W4.dim() != 3 or W4.shape[:2] != (4, 10) or W4.shape[2] % SP:
         raise ValueError(f"W4 must be (4, 10, n*{SP}), got {tuple(W4.shape)}")
+    if not on_cpu(W4) and SP % 4:
+        raise ValueError(f"B6's kernel copies 4 triangles at a time: SP={SP} "
+                         "must be a multiple of 4")
     if _inst_check(inst, blk.shape[0], (txf_tab,), "txf_tab"):
         _f32(txf_tab)
         if txf_tab.dim() != 2 or txf_tab.shape[1] != 12:
@@ -558,11 +646,11 @@ def pair_intersect(blk, sl, lo, hi, ro, rd, W4, eps, *, SP, pair_block=256,
                    n_items=None, inst=None, txf_tab=None):
     """B6: work-item pair intersection over superleaf-sorted rays. ro/rd:
     V3 of sorted pair rays (P,); W4 (4, 10, n_msl*SP); sl holds each item's
-    (mesh) superleaf. Two-level scenes add inst (n,) i32, each item's
-    instance, and txf_tab (n_inst, 12), the inverse transforms: the item's
-    rays move to mesh space in the kernel. Returns per sorted position
-    (t, u, v, det, LOCAL tri index in [0, SP)); uncovered positions hold a
-    miss."""
+    (mesh) superleaf; items ordered by the positions they cover (module
+    note). Two-level scenes add inst (n,) i32, each item's instance, and
+    txf_tab (n_inst, 12), the inverse transforms: the item's rays move to
+    mesh space in the kernel. Returns per sorted position (t, u, v, det,
+    LOCAL tri index in [0, SP)); uncovered positions hold a miss."""
 
     n_items = _pair_check(blk, sl, lo, hi, n_items, ro, rd, W4, SP, inst, txf_tab)
     if on_cpu(ro.x):
@@ -570,9 +658,9 @@ def pair_intersect(blk, sl, lo, hi, ro, rd, W4, eps, *, SP, pair_block=256,
                                     pair_block=pair_block, n_items=n_items,
                                     inst=inst, txf_tab=txf_tab)
     out = _pair_launch("lupin_pair_intersect", "bvh", (), blk, sl, lo, hi,
-                       n_items, inst, txf_tab, ro, rd, W4, eps, SP, pair_block)
+                       n_items, inst, txf_tab, ro, rd, W4, eps, SP, pair_block,
+                       split=True)
     LAUNCHES["pair_intersect"] += 1
-    INST_LAUNCHES["pair_intersect"] += inst is not None
     return out
 
 
@@ -646,5 +734,4 @@ def attr_fetch(blk, sl, lo, hi, li, hu, hv, A3, *, pair_block=256,
                 out.data_ptr(), _stream(dev))
     cuda_build.check(rc, "attr_fetch")
     LAUNCHES["attr_fetch"] += 1
-    INST_LAUNCHES["attr_fetch"] += has_inst
     return out

@@ -20,10 +20,11 @@ ray_tri_dst (pathtracer.wgsl:2922-2943).
 - Two-level (instanced) scenes keep one mesh-space soup per unique mesh and
   a top tree over every (instance x mesh superleaf) pair. They take the same
   wavefront: B4 in its resident or stream mode on coherent batches, and on
-  bounce batches B6/B7 with a per-item instance word up to INST_SMEM_MAX
-  instances; above it the sorted pair rays are moved to mesh space and the
-  attribute rows rotated in PyTorch around kernels that run without the
-  instance word. Triangle ids are global (superleaf * stride + lane), the
+  bounce batches B6/B7 with a per-item instance word, whatever the number
+  of instances (the JAX package's large-instance route, which moves the
+  rays and rotates the rows outside the kernels, is a limit of the TPU's
+  scalar memory and has no counterpart here). Triangle ids are global
+  (superleaf * stride + lane), the
   backside flag needs no det-sign fixup, and attributes always come from
   `wavefront_fetch_attrs`. `closest_hit_brute_two_level` is their
   reference for the tests: every (ray, global superleaf) pair, no tree.
@@ -116,15 +117,22 @@ def build_tri_matrix(v0T, e1T, e2T):
 def scene_tri_matrix(scene):
     """Dense coefficient matrix over the world triangle soup: the real
     triangles of a dense scene; for superleaf scenes the full fixed-stride
-    repacked soup (padding rows are degenerate: det = 0, never valid)."""
+    repacked soup (padding rows are degenerate: det = 0, never valid).
+    Built once per scene and cached on it: every caller gets the same
+    tensor, which must not be modified."""
 
+    cached = scene.__dict__.get("_tri_matrix")
+    if cached is not None:
+        return cached
     if scene.use_bvh and scene.sl_count > 0:
         n = scene.msl_count * scene.sl_stride
     else:
         n = scene.num_world_tris
-    return build_tri_matrix(
+    W = build_tri_matrix(
         scene.wt_v0[:, :n], scene.wt_e1[:, :n], scene.wt_e2[:, :n]
     )
+    scene.__dict__["_tri_matrix"] = W
+    return W
 
 
 def ray_features(ro: V3, rd: V3):
@@ -316,12 +324,6 @@ WF_Q_TAIL = 32  # compacted straggler rounds
 WF_RAY_BLOCK = 2048  # lane padding of a batch
 WF_PAIR_BLOCK = 256  # sorted positions per work-item block
 WF_TAIL_C = 2048  # straggler-compaction capacity
-# Two-level scenes: up to this many instances B6 and B7 read the per-instance
-# tables themselves; above it the rays are transformed and the rows rotated
-# in PyTorch (intersect.py:575). The JAX package's bound describes the TPU's
-# SMEM (a padded (n, 9) table no longer fits it), not a limit of the card;
-# it is kept so that both packages take the same route on the same scene.
-INST_SMEM_MAX = 2048
 
 # The JAX package's packet-eligibility budgets (intersect.py:79-138), kept
 # so that the same scenes take the same route.
@@ -525,10 +527,7 @@ def _wf_pairs(scene, tab, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     (Q, Bp) emits grouped by superleaf (stable sort) and cut into work
     items. Returns B6's arguments ahead of (W, eps) and its keywords, the
     sorted keys, the sort order, n_real and B5's (stack, sp). Two-level
-    scenes pass B6 each item's mesh superleaf and instance; above
-    INST_SMEM_MAX instances the sorted rays are moved to mesh space here
-    (one gather of each pair's inverse transform, intersect.py:1037-1053)
-    and B6 runs without the instance word."""
+    scenes pass B6 each item's mesh superleaf and instance."""
 
     Bp = rop.x.shape[0]
     n_sl = scene.sl_count
@@ -541,13 +540,7 @@ def _wf_pairs(scene, tab, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     s_ro = V3(*(x[ray] for x in rop))
     s_rd = V3(*(x[ray] for x in rdp))
     blk, sl_k, lo, hi, n_real, n_items = _wf_work_items(skey, n_sl, PB, cnt_sl)
-    huge = _huge_inst(scene)
-    msl_k, inst_k, txf_tab, _, _ = _item_instancing(scene, sl_k, tables=not huge)
-    if huge:
-        m12 = scene.inst_inv.reshape(-1, 12)[
-            scene.gsl_inst[skey.clamp(max=n_sl - 1).long()].long()]
-        o, d = bk.mesh_space(m12, s_ro, s_rd)
-        s_ro, s_rd = V3(*o), V3(*d)
+    msl_k, inst_k, txf_tab, _, _ = _item_instancing(scene, sl_k)
     args = (blk, msl_k, lo, hi, s_ro, s_rd)
     kw = dict(SP=scene.sl_stride, pair_block=PB, n_items=n_items, inst=inst_k,
               txf_tab=txf_tab)
@@ -625,29 +618,19 @@ class InterpAttrs:
         ))
 
 
-def _item_instancing(scene, sl_k, tables: bool = True):
+def _item_instancing(scene, sl_k):
     """(msl_k, inst_k, txf_tab, nrm_tab, ovr_tab): per work item its mesh
     superleaf and instance, and the per-instance inverse transforms
     (n, 12), normal matrices (n, 9) and material overrides (n,)
     (intersect.py:840-854). Single-level scenes are their own mesh space:
-    the items' superleaves and Nones. With tables=False (the large-instance
-    route, where the kernels read no instance table) only msl_k is made."""
+    the items' superleaves and Nones."""
 
     if not scene.two_level:
         return sl_k, None, None, None, None
     g = sl_k.long()
-    if not tables:
-        return scene.gsl_msl[g].to(torch.int32), None, None, None, None
     return (scene.gsl_msl[g].to(torch.int32), scene.gsl_inst[g].to(torch.int32),
             scene.inst_inv.reshape(-1, 12), scene.inst_normal_mat.reshape(-1, 9),
             scene.inst_mat.to(torch.int32))
-
-
-def _huge_inst(scene) -> bool:
-    """Two-level scenes whose instance tables B6 and B7 do not read
-    themselves (see INST_SMEM_MAX)."""
-
-    return scene.two_level and scene.num_instances > INST_SMEM_MAX
 
 
 def _ia_from_rows(r, with_tan: bool) -> InterpAttrs:
@@ -680,9 +663,7 @@ def _attr_fetch_args(scene, hit: HitInfo):
     li = torch.where(hitm, tri % SP, 0).to(torch.int32)
     skey, order = torch.sort(key, stable=True)
     blk, sl_k, lo, hi, _, n_items = _wf_work_items(skey, n_sl, PB)
-    # Above INST_SMEM_MAX instances the rows are rotated after the kernel.
-    msl_k, inst_k, _, nrm_tab, ovr_tab = _item_instancing(
-        scene, sl_k, tables=not _huge_inst(scene))
+    msl_k, inst_k, _, nrm_tab, ovr_tab = _item_instancing(scene, sl_k)
     A3 = scene.wt_attr[: scene.msl_count * SP].reshape(
         scene.msl_count, SP, dk.ATTR_WIDTH)
     args = (blk, msl_k, lo, hi, li[order], _pad(hit.u, pad, 0.0)[order],
@@ -695,31 +676,14 @@ def _attr_fetch_args(scene, hit: HitInfo):
 def wavefront_fetch_attrs(scene, hit: HitInfo) -> InterpAttrs:
     """InterpAttrs of BVH hits (intersect.py:857-950): rays sorted by
     winning superleaf (misses last), kernel B7 per work item, rows scattered
-    back to ray order; miss lanes are zero. Two-level scenes above
-    INST_SMEM_MAX instances run B7 in mesh space and rotate the rows by the
-    winner's instance afterwards."""
+    back to ray order; miss lanes are zero."""
 
     args, kw, order, hitm = _attr_fetch_args(scene, hit)
     a = bk.attr_fetch(*args, **kw)
     base = torch.empty_like(a)
     base[:, order] = a
     r = torch.where(hitm[None, :], base, 0.0)[:, :hit.tri.shape[0]]
-    if _huge_inst(scene):
-        r = _rotate_attrs_by_instance(scene, hit, r)
     return _ia_from_rows(r, kw["with_tangents"])
-
-
-def _rotate_attrs_by_instance(scene, hit: HitInfo, rows):
-    """The PyTorch tail of the large-instance attribute route
-    (intersect.py:953-991): what B7 does with an instance word, on rows
-    (awout, B) in ray order. Miss lanes take no override (-1): their zero
-    rows stay zeros."""
-
-    gsl = torch.where(hit.hit, hit.tri, 0).long() // scene.sl_stride
-    inst = scene.gsl_inst[gsl].long()
-    nm = scene.inst_normal_mat.reshape(-1, 9)[inst]
-    ovr = torch.where(hit.hit, scene.inst_mat[inst].to(torch.int32), -1)
-    return bk.rotate_rows(rows, nm, ovr)
 
 
 def _packet_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None):

@@ -9,6 +9,11 @@ BSDF lobes, the 50/50 BSDF/light mix (STANDARD) or BSDF-only sampling
 render/integrators.pathtrace_spp, with the same PCG streams and draw order,
 which the wrapper runs for tensors on the CPU.
 
+The kernel reads two tables packed for 16-byte loads, each built once: the
+coefficient matrix in groups of four triangles (kernels/bvh.py::pair_table,
+B6's layout, kept on the matrix) and the light triangles' geometry with
+their light's area (`pack_light_table`, kept on the scene).
+
 `applicable` is the JAX package's static gate: every feature the kernel
 does not implement must be statically absent; scenes outside it take the
 wavefront route.
@@ -27,6 +32,7 @@ from ..core.types import PathtraceType
 LAUNCHES = {"mega_pathtrace_spp": 0}
 
 MAX_LIGHT_TRIS = 64
+LIGHT_COLS = 12  # csrc/mega.cu: v0.xyz, area, e1.xyz, 0, e2.xyz, 0
 
 
 def applicable(scene, ptype: int) -> bool:
@@ -63,6 +69,26 @@ class _Params(ctypes.Structure):
     )
 
 
+def pack_light_table(scene):
+    """(Tl, LIGHT_COLS) f32: per light triangle v0, its light's area, e1,
+    0, e2, 0 (the arrays lights.py reads: lt_v0/lt_e1/lt_e2 and
+    light_area[lt_light])."""
+
+    area = scene.light_area[scene.lt_light.long()].to(torch.float32)
+    z = torch.zeros_like(area)
+    cols = [*scene.lt_v0, area, *scene.lt_e1, z, *scene.lt_e2, z]
+    return torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous()
+
+
+def _light_table(scene):
+    """pack_light_table(scene), built once per scene and kept on it."""
+
+    table = scene.__dict__.get("_mega_light_table")
+    if table is None:
+        table = scene.__dict__["_mega_light_table"] = pack_light_table(scene)
+    return table
+
+
 def mega_pathtrace_spp(
     scene, W4, pixel_idx, gx, gy, resolution, cam, is_ortho: bool,
     accum_counter, rng_seed, spp: int, ptype: int, max_bounces: int,
@@ -94,19 +120,25 @@ def mega_pathtrace_spp(
 
 def _launch(scene, W4, pixel_idx, gx, gy, resolution, cam, is_ortho,
             accum_counter, rng_seed, spp, ptype, max_bounces, max_radiance,
-            eps, sample_offset):
+            eps, sample_offset, lib=None):
+    """The kernel's launch, through `lib` if given (another build of
+    csrc/mega.cu: tools/prof_mega.py's occupancy sweep)."""
+
     from ..core.vec3 import V3
     from ..render.camera import camera_scalars
     from . import cuda_build
+    from .bvh import pair_table
 
     dev = W4.device
     for x in (pixel_idx, gx, gy, scene.wt_attr):
         if x.device != dev:
             raise ValueError("all inputs must be on the scene's device")
-    T = scene.num_world_tris
-    W4 = W4[:, :, :T].contiguous()
     if W4.dtype != torch.float32:
         raise TypeError("W4 must be float32")
+    T = scene.num_world_tris
+    if W4.shape != (4, 10, T):
+        raise ValueError(f"W4 must be (4, 10, {T}), got {tuple(W4.shape)}")
+    Wp, lt = pair_table(W4), _light_table(scene)
     A = scene.wt_attr.contiguous()
     c = camera_scalars(cam["cam_transform"], cam["lens"], cam["film"],
                        cam["aspect"], cam["focus"], cam["aperture"], resolution)
@@ -122,29 +154,29 @@ def _launch(scene, W4, pixel_idx, gx, gy, resolution, cam, is_ortho,
         max_bounces=int(max_bounces),
         use_nee=int(int(ptype) == int(PathtraceType.STANDARD)),
         is_ortho=int(bool(is_ortho)), n_tris=T, a_stride=A.shape[1],
-        num_lights=nl, n_light_tris=scene.lt_v0.shape[1] if nl else 0,
+        num_lights=nl, n_light_tris=lt.shape[0] if nl else 0,
         type_mask=sum(1 << t for t in scene.present_mat_types),
         n_pix=pixel_idx.shape[0],
     )
-    lt_area = scene.light_area[scene.lt_light.long()].contiguous()
-    tabs = [scene.lt_v0.contiguous(), scene.lt_e1.contiguous(),
-            scene.lt_e2.contiguous(), lt_area, scene.la_thresh.contiguous(),
-            scene.la_alias.contiguous(), scene.light_alias_offset.contiguous(),
+    tabs = [scene.la_thresh.contiguous(), scene.la_alias.contiguous(),
+            scene.light_alias_offset.contiguous(),
             scene.light_alias_size.contiguous(),
             scene.light_tri_offset.contiguous()]
     B = pixel_idx.shape[0]
     acc = [torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)]
     n_traced = torch.empty(B, dtype=torch.int32, device=dev)
-    lib = cuda_build.load("mega")
+    if lib is None:
+        lib = cuda_build.load("mega")
     fn = lib.lupin_mega_pathtrace
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 19
+    fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 16
     if B > 0:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = fn(ctypes.byref(p), pixel_idx.contiguous().data_ptr(),
                     gx.contiguous().data_ptr(), gy.contiguous().data_ptr(),
-                    W4.data_ptr(), A.data_ptr(), *[t.data_ptr() for t in tabs],
+                    Wp.data_ptr(), A.data_ptr(), lt.data_ptr(),
+                    *[t.data_ptr() for t in tabs],
                     *[a.data_ptr() for a in acc], n_traced.data_ptr(), stream)
         cuda_build.check(rc, "mega_pathtrace_spp")
         LAUNCHES["mega_pathtrace_spp"] += 1

@@ -1,0 +1,156 @@
+"""Occupancy sweep of kernel B3 on the card: how many blocks per SM should
+its registers allow?
+
+    python3 -m lupinpathtracer_tpu_torch.tools.prof_mega [--reps N]
+
+csrc/mega.cu asks __launch_bounds__ for at least 8 blocks of 128 threads
+per SM (at most 65536 / (128 x 8) = 64 registers a thread). This tool
+compiles a copy of that source for each value of VALUES, the bound's
+second argument replaced (0: no second argument, as B3's earlier design
+had it; ptxas then picks fewer registers than with 1, the loosest value),
+into the build directory, all nvcc processes at once, and times each
+build on the Cornell main path's launch (512x512 pixels, 64 spp, 8
+bounces, STANDARD), in turns.
+Every build computes the same function with the same operations: each
+output must equal the checkout's build bit for bit. One JSON line per
+value: the registers and spill bytes ptxas reports for both instantiations
+of mega_kernel (the triangle table in shared memory or read through L1),
+the mean device time (torch.profiler) and the card's name and power
+limit. Needs a CUDA GPU and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from .._paths import BUILD_DIR
+from ..kernels import cuda_build, mega
+from .prof_pair import kernel_ms
+
+VALUES = (0, 1, 8, 10, 12, 16)  # 16 blocks of 4 warps fill an SM's 64 warps
+BOUND = "__launch_bounds__(THREADS, 8)"  # as csrc/mega.cu has it
+
+
+def build(values=VALUES) -> dict:
+    """{value: (loaded library, ptxas output)}: csrc/mega.cu with its bound
+    set to each value, compiled with the port's flags."""
+
+    src = open(os.path.join(cuda_build.CSRC, "mega.cu")).read()
+    if src.count(BOUND) != 1:
+        raise RuntimeError(f"csrc/mega.cu must hold {BOUND} once")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for v in values:
+        path = os.path.join(BUILD_DIR, f"mega_min_blocks_{v}.cu")
+        bound = f"__launch_bounds__(THREADS{f', {v}' if v else ''})"
+        with open(path, "w") as f:
+            f.write(src.replace(BOUND, bound))
+        lib = path[:-3] + ".so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-I", cuda_build.CSRC, "-o", lib, path]
+        procs[v] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for v, (lib, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for mega.cu with {v} blocks per SM:\n{log}")
+        out[v] = (ctypes.CDLL(lib), log)
+    return out
+
+
+def ptxas_usage(out: str) -> dict:
+    """{"smem" | "global": (registers, spill store bytes)} of the two
+    mega_kernel instantiations in nvcc's -Xptxas -v output."""
+
+    usage, which, spill = {}, None, 0
+    for line in out.splitlines():
+        m = re.search(r"mega_kernelILb([01])E", line)
+        if m:
+            which = "smem" if m.group(1) == "1" else "global"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and which:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and which:
+            usage[which] = (int(m.group(1)), spill)
+            which = None
+    return usage
+
+
+def main_path_launch(dev):
+    """(scene, W, the launch's arguments after W, eps) of the Cornell main
+    path's B3 launch (chip_smoke.py's timing shapes)."""
+
+    from .. import build_scene_torch
+    from ..core.types import PathtraceDesc, PathtraceType
+    from ..io import builtin
+    from ..kernels import intersect
+    from ..render.renderer import _camera_args, _pixel_batch
+
+    cornell, cams = builtin.build_scene_cornell_box()
+    scene = build_scene_torch(cornell, device=dev)
+    desc = PathtraceDesc()
+    desc.camera_transform = cams[0].transform
+    desc.camera_params = cams[0].params
+    gx, gy = _pixel_batch(512, 512, 0, 0, dev)
+    args = (gy * 512 + gx, gx, gy, (512.0, 512.0), _camera_args(desc), False,
+            0, 0, 64, int(PathtraceType.STANDARD), 8, 100.0)
+    return scene, intersect.scene_tri_matrix(scene), args, float(np.float32(1e-3))
+
+
+def sweep(reps: int = 3) -> dict:
+    """{value: dict(ms, runs_ms, registers, spill_bytes)}, the values timed
+    in turns (VALUES, then reversed; ms is the mean of both). Raises if a
+    build's output differs from the checkout's build."""
+
+    dev = torch.device("cuda", 0)
+    builds = build()
+    scene, W, args, eps = main_path_launch(dev)
+    ref = mega._launch(scene, W, *args, eps, 0)
+    times = {v: [] for v in VALUES}
+    for order in (VALUES, VALUES[::-1]):
+        for v in order:
+            ms, (acc, nt), _ = kernel_ms(
+                lambda: mega._launch(scene, W, *args, eps, 0, lib=builds[v][0]),
+                "mega_kernel", reps)
+            if not (torch.equal(nt, ref[1])
+                    and all(torch.equal(a, b) for a, b in zip(acc, ref[0]))):
+                raise AssertionError(f"{v} blocks per SM changed B3's output")
+            times[v].append(ms)
+    out = {}
+    for v in VALUES:
+        use = ptxas_usage(builds[v][1])
+        out[v] = dict(ms=float(np.mean(times[v])), runs_ms=times[v],
+                      registers={k: u[0] for k, u in use.items()},
+                      spill_bytes={k: u[1] for k, u in use.items()})
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=3)
+    ns = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("prof_mega: no CUDA GPU available", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    for v, r in sweep(ns.reps).items():
+        print(json.dumps(dict(min_blocks_per_sm=v, threads_per_block=128, **r,
+                              card=card)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

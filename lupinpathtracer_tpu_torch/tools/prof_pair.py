@@ -8,14 +8,16 @@ kernels/bvh.py::pair_intersect_variant) on one real round-1 state of the
 BVH wavefront, so that the difference between two variants is the cost of
 the part that differs:
 
-  V0    as shipped (equal to pair_intersect bit for bit)
+  V0    B6's earlier design, a block per work item (equal to
+        pair_intersect, csrc/pair_intersect.cuh, bit for bit)
   V1    selection t by rsqrt(det^2) and sign tests instead of the divide,
         the winner recomputed exactly
   V2    (t, index) only: no u, v, det
   V3    V1 + V2
   V4    the largest triangle tile that fits shared memory (1024 triangles
         for a stride >= 1024; the shipped tile is 256)
-  V5    evaluate-only floor: the four products and min(nt), no validity
+  V5    the products and min(nt), no validity (ptxas drops the three
+        products kept alive only by an empty asm: not a floor)
   GRID  every item empty (lo == hi): the cost of the launch and its blocks
 
 A round-1 state is what the first wavefront round hands B6: the camera
@@ -23,7 +25,7 @@ batch through B5, the superleaf sort and the work items
 (kernels/intersect.py::_wf_pairs). Two states are timed, both 512x288
 camera batches: the 2M-triangle terrain (699 superleaves of 4096
 triangles) and the 100,000-instance field (about 100k superleaves of 256
-triangles, rays moved to mesh space ahead of the kernel). Each line is one
+triangles, each item's rays moved to mesh space in the kernel). Each line is one
 variant: its mean device time over the profiler's records of the kernel,
 the state, and the card's name and power limit. Needs a CUDA GPU.
 """
@@ -148,6 +150,60 @@ def time_variants(args, W, eps, kw, reps: int = 5) -> dict:
 
     return {v: kernel_ms(lambda v=v: run_variant(v, args, W, eps, kw),
                          "pair_kernel", reps) for v in VARIANTS}
+
+
+def main_path_launches(scene, desc, width: int, height: int, spp: int,
+                       bounces: int, reps: int = 3) -> list:
+    """Every B6 launch of one accumulation of the BVH main path, recorded
+    and replayed: per launch its positions, pairs, items, tiles of 256
+    positions, the mean and largest mesh superleaves per tile, the split
+    the kernel takes (bvh.pair_split), and the device times of B6 and of
+    V0 (its earlier design) on the same inputs, which must agree bit for
+    bit. Needs a CUDA GPU."""
+
+    from .. import BakedPathtraceParams, render_progressive
+
+    rec = []
+    real = bvh.pair_intersect
+
+    def record(*a, **k):
+        rec.append(([V3(*(c.clone() for c in x)) if isinstance(x, V3)
+                     else x.clone() if i < 4 else x for i, x in enumerate(a)],
+                    {key: v.clone() if torch.is_tensor(v) else v
+                     for key, v in k.items()}))
+        return real(*a, **k)
+
+    bvh.pair_intersect = record
+    try:
+        render_progressive(scene, desc, BakedPathtraceParams(
+            max_bounces=bounces, samples_per_pixel=spp), width, height, 1,
+            device=scene.wt_attr.device)
+    finally:
+        bvh.pair_intersect = real
+    out = []
+    for a, k in rec:
+        blk, msl, lo, hi, so = a[:5]
+        P = so.x.shape[0]
+        item = bvh.pair_item_map(blk, lo, hi, k["n_items"], k["pair_block"], P)
+        pos = torch.nonzero(item >= 0)[:, 0]
+        tile = pos // bvh.PAIR_TILE
+        per_tile = torch.bincount(torch.unique(
+            tile * scene.msl_count + msl.long()[item[pos]]) // scene.msl_count)
+        per_tile = per_tile[per_tile > 0].float()
+        n_tiles = int(tile.max()) + 1 if pos.numel() else 0
+        b6_ms, b6, by6 = kernel_ms(lambda: real(*a, **k), "pair_hit_kernel", reps)
+        v0_ms, v0, by0 = kernel_ms(
+            lambda: bvh.pair_intersect_variant("V0", *a, **k), "pair_kernel", reps)
+        if not all(torch.equal(x, y) for x, y in zip(b6, v0)):
+            raise AssertionError("B6 and V0 disagree on a main-path launch")
+        out.append(dict(
+            positions=P, pairs=int(pos.numel()), items=int(k["n_items"]),
+            tiles=int(per_tile.numel()),
+            superleaves_per_tile=float(per_tile.mean()) if per_tile.numel() else 0.0,
+            superleaves_per_tile_max=int(per_tile.max()) if per_tile.numel() else 0,
+            split_chunks=bvh.pair_split(k["SP"], n_tiles)[0], b6_ms=b6_ms,
+            v0_ms=v0_ms, timed_by=by6 if by6 == by0 else "events"))
+    return out
 
 
 def main(argv=None) -> int:

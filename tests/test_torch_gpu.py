@@ -8,16 +8,20 @@ Tolerances: B1/B2 equal their plain versions exactly (same f32 operations
 in the same order, kernels built with -fmad=false); B3 holds n_traced equal
 on >= 99.9% of lanes and acc at rtol 2e-4 / atol 2e-5 there (the plain
 version divides by Python scalars, which PyTorch on the card turns into a
-reciprocal multiply). The BVH kernels B4-B7 equal their plain versions
-exactly on a 300k-triangle terrain (several superleaves, four sub-chunks
-each): the same tables walked in the same order with the same f32
-arithmetic. Both BVH routes are also held to closest_hit_bvh, the walk of
-the binary BVH (tolerances in that test). Two-level scenes: on a
-2,000-instance field (small enough for B4's resident mode and for the
-instance word of B6 and B7) both B4 modes, B6 and B7 with and without the
-instance word, and the B6' variants equal their plain versions exactly
-(V1/V3 select with rsqrt: the winner may differ on <= 1e-4 of hit lanes),
-and both routes are held to closest_hit_brute_two_level."""
+reciprocal multiply), with its triangle table in shared memory (the Cornell
+box) and read through L1 (the box with a 520-triangle sphere). The BVH
+kernels B4-B7 equal their plain versions exactly on a 300k-triangle terrain
+(several superleaves, four sub-chunks each): the same tables walked in the
+same order with the same f32 arithmetic. B6 also equals the earlier design
+(B6' V0) bit for bit, with the sign pre-test on (eps > 0) and off (eps = 0)
+and on an all-empty grid. Both BVH routes are also held to
+closest_hit_bvh, the walk of the binary BVH (tolerances in that test).
+Two-level scenes: on a 2,000-instance field (small enough for B4's
+resident mode) both B4 modes, B6 and B7 with the instance word and without
+it (rays moved to mesh space, rows rotated, in PyTorch), and the B6'
+variants equal their plain versions exactly (V1/V3 select with rsqrt: the
+winner may differ on <= 1e-4 of hit lanes), and both routes are held to
+closest_hit_brute_two_level."""
 
 import numpy as np
 import pytest
@@ -65,13 +69,38 @@ def test_b1_b2_kernels_match_plain_on_card(cuda_device):
         assert torch.equal(a, b)
 
 
+def _sphere_mesh(n_lat=14, n_lon=20):
+    """A UV sphere of radius 1: (n_lat - 1) * n_lon * 2 triangles."""
+
+    lat = np.linspace(0.15, np.pi - 0.15, n_lat)
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    pts = np.asarray([[np.sin(a) * np.cos(b), np.cos(a), np.sin(a) * np.sin(b)]
+                      for a in lat for b in lon], np.float32)
+    idx = []
+    for i in range(n_lat - 1):
+        for j in range(n_lon):
+            a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
+            c, d = (i + 1) * n_lon + j, (i + 1) * n_lon + (j + 1) % n_lon
+            idx += [[a, b, c], [b, d, c]]
+    return tl.MeshCPU(positions=pts, indices=np.asarray(idx, np.int32),
+                      normals=pts.copy(), texcoords=None, colors=None)
+
+
 @pytest.mark.gpu
-def test_megakernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("sphere", [False, True], ids=["shared_table", "l1_table"])
+def test_megakernel_matches_plain_on_card(cuda_device, sphere):
     scene, cams = builtin.build_scene_cornell_box()
     scene.instances[6].mat_idx = scene.add_material(tl.Material(
         color=np.array([0.8, 0.7, 0.6, 1.0], np.float32),
         mat_type=tl.MaterialType.GLOSSY, roughness=0.3, ior=1.5))
+    if sphere:  # past the shared-memory table (csrc/mega.cu TRI_SMEM_TRIS)
+        frame = np.zeros((3, 4), np.float32)
+        frame[:, :3] = 0.25 * np.eye(3, dtype=np.float32)
+        frame[:, 3] = (0.3, 1.2, 0.2)
+        scene.instances.append(tl.InstanceCPU(
+            frame=frame, mesh_idx=scene.add_mesh(_sphere_mesh()), mat_idx=0))
     ts = tl.build_scene_torch(scene, device=cuda_device)
+    assert not ts.use_bvh and (ts.num_world_tris > 128) == sphere
     xs = torch.arange(32, dtype=torch.int32, device=cuda_device)
     gx, gy = xs.repeat(32), xs.repeat_interleave(32)
     pix = gy * 32 + gx
@@ -268,7 +297,6 @@ def field_rays():
                                                         tris_per_mesh=64)
     ts = tl.build_scene_torch(scene, device=dev)
     assert ts.two_level and packet.tables_resident(ts)
-    assert ts.num_instances <= intersect.INST_SMEM_MAX
     ro, rd = _camera_rays(cams, 128, 72, dev)
     W = intersect.scene_tri_matrix(ts)
     h, ia = intersect.closest_hit_attrs(ts, ro, rd, EPS, W=W)
@@ -294,50 +322,78 @@ def test_b4_two_level_modes_match_plain_on_card(field_rays):
 
 
 @pytest.mark.gpu
-def test_b6_b7_instance_modes_match_plain_on_card(field_rays, monkeypatch):
+def test_b6_b7_instance_modes_match_plain_on_card(field_rays):
     """B6 with the instance word against its plain version and against B6
-    on rays moved to mesh space in PyTorch (the large-instance route); B7
-    with the instance word against its plain version and against B7 in mesh
-    space followed by the PyTorch rotation."""
+    on the same rays moved to mesh space in PyTorch (bvh.mesh_space); B7
+    with the instance word against its plain version and against B7 in
+    mesh space followed by the PyTorch rotation (bvh.rotate_rows)."""
 
     ts, W, _, (o, d) = field_rays
-    args, kw, _ = prof_pair.round1_state(ts, o, d)
+    args, kw, info = prof_pair.round1_state(ts, o, d)
     assert kw["inst"] is not None
-    bvh.INST_LAUNCHES["pair_intersect"] = 0
+    bvh.LAUNCHES["pair_intersect"] = 0
     k = bvh.pair_intersect(*args, W, EPS, **kw)
-    assert bvh.INST_LAUNCHES["pair_intersect"] == 1
+    assert bvh.LAUNCHES["pair_intersect"] == 1
     p = bvh.pair_intersect_plain(*args, W, EPS, **kw)
     assert bool((k[0] < dk.F32_MAX).any())
     for a, b in zip(k, p):
         assert torch.equal(a, b)
-    with monkeypatch.context() as m:
-        m.setattr(intersect, "INST_SMEM_MAX", 0)
-        args0, kw0, _ = prof_pair.round1_state(ts, o, d)
-    assert kw0["inst"] is None
-    pre = bvh.pair_intersect(*args0, W, EPS, **kw0)
-    assert bvh.INST_LAUNCHES["pair_intersect"] == 1
+    skey = info["skey"]
+    m12 = ts.inst_inv.reshape(-1, 12)[
+        ts.gsl_inst[skey.clamp(max=ts.sl_count - 1).long()].long()]
+    mo, md = bvh.mesh_space(m12, args[4], args[5])
+    kw0 = dict(kw, inst=None, txf_tab=None)
+    pre = bvh.pair_intersect(*args[:4], V3(*mo), V3(*md), W, EPS, **kw0)
     for a, b in zip(k, pre):
         assert torch.equal(a, b)
 
-    outs = {}
-    for imax in (intersect.INST_SMEM_MAX, 0):
-        monkeypatch.setattr(intersect, "INST_SMEM_MAX", imax)
-        h = intersect.closest_hit(ts, o, d, EPS, W=W, coherent=False)
-        args7, kw7, _, _ = intersect._attr_fetch_args(ts, h)
-        assert (kw7["inst"] is None) == (imax == 0)
-        rows = bvh.attr_fetch(*args7, **kw7)
-        assert torch.equal(rows, bvh.attr_fetch_plain(*args7, **kw7))
-        outs[imax] = (h, intersect.wavefront_fetch_attrs(ts, h))
-    (h1, a1), (h2, a2) = outs.values()
-    assert bool(h1.hit.any()) and torch.equal(h1.dst, h2.dst)
-    assert torch.equal(h1.tri, h2.tri)
-    for f in ("n", "gn"):
-        for x, y in zip(getattr(a1, f), getattr(a2, f)):
-            assert torch.equal(x, y)
-    assert torch.equal(a1.mat_id, a2.mat_id)
-    gn2 = a1.gn.x ** 2 + a1.gn.y ** 2 + a1.gn.z ** 2
-    torch.testing.assert_close(gn2[h1.hit], torch.ones_like(gn2[h1.hit]),
+    h = intersect.closest_hit(ts, o, d, EPS, W=W, coherent=False)
+    args7, kw7, order, hitm = intersect._attr_fetch_args(ts, h)
+    assert kw7["inst"] is not None
+    rows = bvh.attr_fetch(*args7, **kw7)
+    assert torch.equal(rows, bvh.attr_fetch_plain(*args7, **kw7))
+    mesh = bvh.attr_fetch(*args7, **dict(kw7, inst=None, nrm_tab=None, ovr_tab=None))
+    item = bvh.pair_item_map(args7[0], args7[2], args7[3], kw7["n_items"],
+                             intersect.WF_PAIR_BLOCK, rows.shape[1])
+    cov = item >= 0
+    i = kw7["inst"].long()[item[cov]]
+    rot = bvh.rotate_rows(mesh[:, cov], kw7["nrm_tab"][i], kw7["ovr_tab"][i])
+    assert bool(cov.any()) and torch.equal(rot, rows[:, cov])
+    ia = intersect.wavefront_fetch_attrs(ts, h)
+    gn2 = ia.gn.x ** 2 + ia.gn.y ** 2 + ia.gn.z ** 2
+    torch.testing.assert_close(gn2[h.hit], torch.ones_like(gn2[h.hit]),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene_name", ["terrain", "field"])
+@pytest.mark.parametrize("split_units", [1, bvh.PAIR_SPLIT_UNITS, 1 << 16],
+                         ids=["no_split", "default", "most_split"])
+def test_b6_matches_plain_and_earlier_design_on_card(scene_name, split_units,
+                                                     request, monkeypatch):
+    """The redesigned B6 (a thread per sorted position) against
+    pair_intersect_plain and B6' V0 (the earlier block-per-item design),
+    bit for bit, on the bounce batch's first-round items: with the sign
+    pre-test (eps > 0), without it (eps = 0), and on an all-empty grid;
+    with the tiles never split, split as by default, and split into as many
+    chunks as the superleaves allow (PAIR_SPLIT_UNITS). On the field
+    several items share a block of positions."""
+
+    monkeypatch.setattr(bvh, "PAIR_SPLIT_UNITS", split_units)
+    ts, W, _, (o, d) = request.getfixturevalue(scene_name + "_rays")
+    args, kw, info = prof_pair.round1_state(ts, o, d)
+    blk, n_items = args[0], int(kw["n_items"])
+    if scene_name == "field":
+        assert n_items > int(torch.unique(blk[:n_items]).numel())
+    for eps in (EPS, 0.0):
+        k = bvh.pair_intersect(*args, W, eps, **kw)
+        p = bvh.pair_intersect_plain(*args, W, eps, **kw)
+        v0 = bvh.pair_intersect_variant("V0", *args, W, eps, **kw)
+        assert bool((k[0] < dk.F32_MAX).any())
+        for a, b, c in zip(k, p, v0):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    e = bvh.pair_intersect(*args[:3], args[2], *args[4:], W, EPS, **kw)
+    assert bool((e[0] == dk.F32_MAX).all()) and not bool(e[4].any())
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
 """PyTorch port, two-level (instanced) scenes on the CPU against the JAX
 package, its Pallas kernels in interpret mode: the flatten's two-level
 tables, kernels B6 and B7 with the per-item instance word, both modes of
-kernel B4, the routing of closest_hit / closest_hit_attrs on both instance
-routes, a render, and the plain versions of the B6' variants.
+kernel B4, the routing of closest_hit / closest_hit_attrs (the port's one
+instance route against both of the JAX package's), a render, and the plain
+versions of the B6' variants.
 
 Scenes (tests/test_two_level.py): five transformed instances of one UV
 sphere (one mirrored) over a ground quad under a quad light, built with
@@ -380,23 +381,36 @@ def _attrs_match(ia, ia_ref, same):
                                   np.asarray(ia_ref.mat_id)[same])
 
 
+def _jax_large_instance_hits(tpu, o, d, monkeypatch):
+    """The JAX sort route with INST_SMEM_MAX = 0 (tests/test_two_level.py:
+    531-589): rays moved to mesh space and rows rotated in XLA around its
+    kernels; the port has only the route with the instance word."""
+
+    (jro, jrd), _ = _v3s(o, d)
+    with monkeypatch.context() as m:
+        m.setattr(jint, "INST_SMEM_MAX", 0)
+        m.setenv("LUPIN_NO_PACKET", "1")
+        jh = jint.closest_hit(tpu, jro, jrd, jnp.float32(EPS), coherent=False)
+        return jh, jint.wavefront_fetch_attrs(tpu, jh)
+
+
 @pytest.mark.parametrize("name", sorted(SCENES))
-@pytest.mark.parametrize("inst_smem_max", [tint.INST_SMEM_MAX, 0],
+@pytest.mark.parametrize("inst_smem_max", [jint.INST_SMEM_MAX, 0],
                          ids=["in_kernel", "large_instance"])
 def test_closest_hit_attrs_routes_match_jax(scenes, jax_hits, monkeypatch,
                                             name, inst_smem_max):
     """closest_hit_attrs, coherent (B4; the single-superleaf shortcut on the
-    plate) and not (B5/B6, B7), on the in-kernel instance route and, with
-    INST_SMEM_MAX = 0, on the large-instance route (rays transformed and
-    rows rotated in PyTorch), against the JAX sort route and the
-    brute-force reference. No det-sign fixup: backside equals JAX's. The
-    two instance routes give equal results."""
+    plate) and not (B5/B6, B7, always with the instance word), against the
+    JAX sort route with its in-kernel instance tables and, with the JAX
+    package's INST_SMEM_MAX = 0, against its large-instance route (rays
+    transformed and rows rotated in XLA), and against the brute-force
+    reference. No det-sign fixup: backside equals JAX's."""
 
     tpu, ts = scenes[name]
     o, d, jh, jia = jax_hits[name]
+    if inst_smem_max == 0:
+        jh, jia = _jax_large_instance_hits(tpu, o, d, monkeypatch)
     _, (tro, trd) = _v3s(o, d)
-    monkeypatch.setattr(tint, "INST_SMEM_MAX", inst_smem_max)
-    assert tint._huge_inst(ts) == (inst_smem_max == 0)
     W = tint.scene_tri_matrix(ts)
     brute = tint.closest_hit_brute_two_level(ts, tro, trd, EPS, W)
     act = np.random.default_rng(4).random(B) < 0.8
@@ -418,34 +432,34 @@ def test_closest_hit_attrs_routes_match_jax(scenes, jax_hits, monkeypatch,
 
 
 def test_instance_routes_equal_each_other(scenes, jax_hits, monkeypatch):
-    """The in-kernel and the large-instance route of the sort wavefront run
-    the same f32 operations in the same order: equal hits and rows."""
+    """The port's one two-level route of the sort wavefront (B6/B7 with the
+    instance word) against the JAX package's large-instance route and the
+    brute-force reference: hit flags equal, t and winners to the module's
+    tolerances, rows to JAX's where the winners agree."""
 
-    _, ts = scenes["instanced"]
+    tpu, ts = scenes["instanced"]
     o, d, _, _ = jax_hits["instanced"]
     _, (tro, trd) = _v3s(o, d)
-    h1, a1 = tint.closest_hit_attrs(ts, tro, trd, EPS, coherent=False)
-    monkeypatch.setattr(tint, "INST_SMEM_MAX", 0)
-    h2, a2 = tint.closest_hit_attrs(ts, tro, trd, EPS, coherent=False)
-    for f in ("hit", "dst", "u", "v", "tri", "backside"):
-        assert torch.equal(getattr(h1, f), getattr(h2, f)), f
-    for f in ("n", "gn"):
-        for x, y in zip(getattr(a1, f), getattr(a2, f)):
-            assert torch.equal(x, y), f
-    assert torch.equal(a1.mat_id, a2.mat_id)
+    jh, jia = _jax_large_instance_hits(tpu, o, d, monkeypatch)
+    h, ia = tint.closest_hit_attrs(ts, tro, trd, EPS, coherent=False)
+    same = _hits_match(h.dst.numpy(), h.tri.numpy(), jh.dst, jh.tri)
+    _attrs_match(ia, jia, same)
+    brute = tint.closest_hit_brute_two_level(ts, tro, trd, EPS,
+                                             tint.scene_tri_matrix(ts))
+    _hits_match(h.dst.numpy(), h.tri.numpy(), brute.dst.numpy(),
+                brute.tri.numpy())
 
 
 def test_large_instance_route_matches_jax_large_instance_route(scenes, env,
                                                                 monkeypatch):
-    """INST_SMEM_MAX = 0 in both packages (tests/test_two_level.py:531-589):
-    the JAX package's XLA pre-transform and rotation tail against the
-    port's."""
+    """INST_SMEM_MAX = 0 in the JAX package (tests/test_two_level.py:
+    531-589): the JAX package's XLA pre-transform and rotation tail against
+    the port's one route, the instance word in B6 and B7."""
 
     tpu, ts = scenes["instanced"]
     o, d = _shell_rays(24)
     (jro, jrd), (tro, trd) = _v3s(o, d)
     monkeypatch.setattr(jint, "INST_SMEM_MAX", 0)
-    monkeypatch.setattr(tint, "INST_SMEM_MAX", 0)
     monkeypatch.setenv("LUPIN_NO_PACKET", "1")
     jh = jint.closest_hit(tpu, jro, jrd, jnp.float32(EPS), coherent=False)
     jia = jint.wavefront_fetch_attrs(tpu, jh)
