@@ -13,25 +13,28 @@ main paths through its entry points:
 - BVH route: the 2M-triangle synthetic terrain (bench.py's terrain2M),
   512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 on camera rays,
   B5/B6/B7 on every bounce batch), B4-B7 against their plain versions at
-  those shapes, and the Cornell box forced onto the BVH route
-  (force_software_bvh: B6/B7) against the golden;
+  those shapes (B4 bit for bit, with the work of its 32-lane packets), and
+  the Cornell box forced onto the BVH route (force_software_bvh: B6/B7)
+  against the golden;
 - two-level route: the 100,000-instance field (bench.py's instanced100k),
-  512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 in stream mode
-  on camera rays; B5, B6 and B7 with the per-item instance word on every
-  bounce batch), and a 2,000-instance field small enough for B4's resident
-  mode; on both, each kernel and mode against its plain version, both B4
-  modes against each other, and closest_hit against the brute-force
-  two-level reference;
-- B6 and the B6' ablation variants (tools/prof_pair.py of the port; V0 is
-  B6's earlier design) in turns on the round-1 states of the terrain2M and
-  instanced100k camera batches, with the share of B6's threads that hold a
-  pair in each design, and B6 against V0 on every B6 launch of one
-  accumulation of each BVH main path, replayed.
+  512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 on camera rays;
+  B5, B6 and B7 with the per-item instance word on every bounce batch), and
+  a 2,000-instance field; on both, each kernel against its plain version
+  (B4 bit for bit) and closest_hit against the brute-force two-level
+  reference;
+- B5 on every B5 launch of one accumulation of each BVH main path,
+  replayed on its recorded inputs against its plain version
+  (tools/prof_top.py), and B6 against V0 (B6's earlier design) the same
+  way (tools/prof_pair.py);
+- B6 and the B6' ablation variants (tools/prof_pair.py of the port) in
+  turns on the round-1 states of the terrain2M and instanced100k camera
+  batches, with the share of B6's threads that hold a pair in each design.
 Each phase prints one JSON line; any failure raises and exits nonzero. The
 kernels line holds each kernel's (and mode's) launches on its main path,
 its error against the plain version, its device time (torch.profiler) and
 the plain version's wall time (CUDA events) at the main path's shapes, and
-its bound on an H100 (FP32 67 TFLOP/s, HBM 3.35 TB/s).
+its bound on an H100 (FP32 67 TFLOP/s, HBM 3.35 TB/s); B5's are the means
+over its replayed main-path launches.
 The last line is {"ok": true, "device": {...}}. Without a GPU it exits
 nonzero and prints no result. Imports nothing of JAX.
 """
@@ -53,7 +56,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "cornell_32_standard.npy")
 TERRAIN_TRIS = 2_000_000  # bench.py's terrain2M
 FIELD_INSTANCES = 100_000  # bench.py's instanced100k
-SMALL_FIELD_INSTANCES = 2_000  # small enough for B4's resident mode
+SMALL_FIELD_INSTANCES = 2_000  # the card tests' field, at the main path's shapes
 # f32 operations per unit of work, for the bounds:
 PAIR_OPS = 81  # ray/triangle: 4 ten-term dot products (76) + 1/det, 3 products, u+v
 SLAB_OPS = 26  # ray/box: 6 subtractions, 6 products, 10 min/max, 4 compares
@@ -233,6 +236,40 @@ def bound_ms(flops: float, nbytes: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def b5_bound(lanes, Q, aabb, pops, pushes, hist_len, rows_read):
+    """B5's bound for one launch: the slab tests and the sort per child it
+    does; bytes: rays and best_t in (28 per lane), sp in and out, the
+    (Q, lanes) ids, counts and aabb out, the stack entries popped and
+    pushed, the histogram where the launch makes one (hist_len bins) and
+    the distinct packed top rows its internal pops read (288 B a row:
+    kernels/bvh.py::top_rows)."""
+
+    from lupinpathtracer_tpu_torch.accel.superleaf import TOP_FAN
+
+    return bound_ms(aabb * (SLAB_OPS + SORT_OPS),
+                    lanes * (28 + 2 * 4 + Q * 4 + 2 * 4) + (pops + pushes) * 4
+                    + hist_len * 4 + rows_read * TOP_FAN * (8 + 1) * 4)
+
+
+def b4_bound(work4, B, out_bytes, rows, sub_numel, extra_ops=0, extra_bytes=0):
+    """B4's bound: the per-ray work whatever implements it, 81 operations
+    per admitted ray/triangle test and 26 per box test; bytes: rays in,
+    records out, each admitted sub-chunk's coefficients once, the top rows
+    and sub-chunk boxes. The packets' union work is reported beside it."""
+
+    return bound_ms(
+        work4["tri_tests"] * PAIR_OPS + work4["box_tests"] * SLAB_OPS + extra_ops,
+        B * 24 + out_bytes + work4["chunks"] * work4["chunk_tris"] * 160
+        + rows * 8 * 36 + sub_numel * 4 + extra_bytes)
+
+
+def assert_equal(k, p, what):
+    """Every output of a kernel equal to its plain version's, bit for bit."""
+
+    same = [bool(torch.equal(a, b)) for a, b in zip(k, p)]
+    assert len(k) == len(p) and all(same), (what, same)
+
+
 def cornell_desc(lt, cams, ptype, max_radiance=100.0):
     desc = lt.PathtraceDesc()
     desc.camera_transform = cams[0].transform
@@ -337,7 +374,6 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     the terrain's (scene, camera rays, W, eps) for the B6' phase."""
 
     import lupinpathtracer_tpu_torch as lt
-    from lupinpathtracer_tpu_torch.accel.superleaf import TOP_COLS, TOP_FAN
     from lupinpathtracer_tpu_torch.core import rng as rng_mod
     from lupinpathtracer_tpu_torch.core.vec3 import V3
     from lupinpathtracer_tpu_torch.io import synthetic
@@ -346,6 +382,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.render.renderer import (
         _camera_args, _pixel_batch)
+    from lupinpathtracer_tpu_torch.tools import prof_top
 
     F32_MAX = dk.F32_MAX
 
@@ -387,16 +424,14 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     p_b4, p4 = plain_ms(lambda: packet.packet_traverse_plain(
         ts, ro, rd, eps, W, with_attrs=True, counts=work4))
     res_b4 = compare_hits(k4, p4, F32_MAX)
-    assert res_b4["hit_flag_mismatch"] == 0, res_b4
+    assert_equal(k4, p4, "B4")
     hits4 = int((k4[0] < F32_MAX).sum())
     awout = k4[5].shape[0]
     row_b = attr_row_bytes(bool(ts.any_normal_maps))
-    bnd_b4 = bound_ms(
-        work4["tri_tests"] * PAIR_OPS + work4["box_tests"] * SLAB_OPS,
-        B * 24 + B * (20 + awout * 4) + hits4 * row_b
-        + work4["chunks"] * work4["chunk_tris"] * 160
-        + rows * TOP_FAN * 36 + ts.sl_sub.numel() * 4)
-    emit("b4_vs_plain", hits=hits4, attr_row_bytes=row_b, **work4, **res_b4)
+    bnd_b4 = b4_bound(work4, B, B * (20 + awout * 4) + hits4 * row_b, rows,
+                      ts.sl_sub.numel())
+    emit("b4_vs_plain", scene=f"terrain{n_tris}", hits=hits4,
+         attr_row_bytes=row_b, bit_for_bit=True, **work4, **res_b4)
 
     # One bounce batch of B rays from the camera hits.
     o, d = bounce_batch(ro, rd, k4[0], V3(*k4[5][bvh.IA_GN]), F32_MAX, seed=1)
@@ -408,13 +443,14 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     S = bvh.stack_depth(ts)
     Q = intersect.WF_Q_DIVERGENT
     PB = intersect.WF_PAIR_BLOCK
-    tab = ts.top_tab.float()
+    tab = ts.top_tab
     stack0 = torch.zeros((S, Bp), dtype=torch.int32, device=dev)
     sp0 = (torch.arange(Bp, device=dev) < B).to(torch.int32)
     bt0 = torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev)
 
     # B5: the batch's first round. It updates its stack in place, so every
-    # call gets a fresh copy (the copy is not part of the kernel's record).
+    # call gets a fresh copy (the copy is not part of the kernel's record);
+    # the stack is compared below each lane's sp (prof_top.max_abs_diff).
     t_b5, k5, by5 = kernel_ms(lambda: bvh.top_traverse(
         tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl),
         "top_kernel", 10)
@@ -422,23 +458,16 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     p_b5, p5 = plain_ms(lambda: bvh.top_traverse_plain(
         tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl,
         counts=work5))
-    b5_equal = [a is b if a is None else bool(torch.equal(a, b))
-                for a, b in zip(k5, p5)]
-    err5 = max(float((a.long() - b.long()).abs().max())
-               for a, b in zip(k5, p5) if a is not None)
+    err5 = prof_top.max_abs_diff(k5, p5, S)
     aabb5 = int(k5[5].sum())
     emits5 = int(k5[1].sum())
     emit("b5_vs_plain", rays=B, lanes=Bp, Q=Q, S=S, emits=emits5,
          aabb_tests=aabb5, pending=int((k5[3] > 0).sum()), **work5,
-         outputs_equal=b5_equal, max_abs_err=err5)
-    assert all(b5_equal) and err5 == 0, b5_equal
-    # Bytes: rays and best_t in (28 per lane), sp in and out, the (Q, Bp)
-    # ids, counts and aabb out, the stack entries popped and pushed, the
-    # histogram and the top table.
-    bnd_b5 = bound_ms(aabb5 * (SLAB_OPS + SORT_OPS),
-                      Bp * (28 + 2 * 4 + Q * 4 + 2 * 4)
-                      + (work5["pops"] + work5["pushes"]) * 4
-                      + bvh.hist_bins(n_sl) * 4 + rows * TOP_COLS * 4)
+         max_abs_err_stack_below_sp=err5, ms=t_b5, plain_ms=p_b5,
+         bound_ms=b5_bound(Bp, Q, aabb5, work5["pops"], work5["pushes"],
+                           0 if k5[4] is None else k5[4].numel(),
+                           work5["rows_read"])[0])
+    assert err5 == 0
 
     # B6 on the round's superleaf-sorted pairs.
     sl = k5[0].reshape(-1)
@@ -516,6 +545,8 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     emit("main_path_bvh_profile", accumulations=1, card=smi,
          device_busy_share_of_timed_wall=prof["device_busy_ms"] * 1e-3
          * timed_accums / wall, **prof)
+    b5_replay = emit_b5_launches(ts, desc, width, height, spp, bounces,
+                                 f"terrain{n_tris}", smi)
     emit_b6_launches(ts, desc, width, height, spp, bounces, f"terrain{n_tris}", smi)
 
     # -- 10. the Cornell box on the BVH route (one superleaf: B6, B7) --------
@@ -540,8 +571,9 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
         entry("B4 packet_traverse", "packet.cu", "lupinpathtracer_tpu/kernels/pallas_packet.py:1011",
               launches["packet_traverse"], res_b4["max_abs_err"], t_b4, p_b4,
               bnd_b4, by4),
-        entry("B5 top_traverse", "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:344",
-              launches["top_traverse"], err5, t_b5, p_b5, bnd_b5, by5),
+        entry("B5 top_traverse (mean per main-path launch)", "bvh.cu",
+              "lupinpathtracer_tpu/kernels/pallas_bvh.py:344",
+              launches["top_traverse"], *b5_replay),
         entry("B6 pair_intersect", "pair_intersect.cuh", "lupinpathtracer_tpu/kernels/pallas_bvh.py:665",
               launches["pair_intersect"], res_b6["max_abs_err"], t_b6, p_b6,
               bnd_b6, by6),
@@ -567,6 +599,36 @@ def emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi):
                       round(r["b6_ms"], 4), round(r["v0_ms"], 4)] for r in runs])
 
 
+def emit_b5_launches(ts, desc, width, height, spp, bounces, tag, smi):
+    """B5 on every B5 launch of one main-path accumulation
+    (tools/prof_top.main_path_launches), each equal to its plain version:
+    the sums, and per launch [lanes, live lanes, Q, pops, pushes, emits,
+    rows read, ms, plain ms, bound ms]. Returns the largest output
+    difference over the launches and the means per launch (ms, plain ms,
+    bound, timed_by) for the kernels line."""
+
+    from lupinpathtracer_tpu_torch.tools import prof_top
+
+    runs = prof_top.main_path_launches(ts, desc, width, height, spp, bounces)
+    bnds = [b5_bound(r["lanes"], r["Q"], r["aabb_tests"], r["pops"],
+                     r["pushes"], r["hist_bins"], r["rows_read"]) for r in runs]
+    n = max(len(runs), 1)
+    timed_by = sorted({r["timed_by"] for r in runs})
+    err = max((r["max_abs_err"] for r in runs), default=0.0)
+    res = dict(ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
+               bound_ms=sum(b[0] for b in bnds))
+    emit("b5_main_path_launches", scene=tag, card=smi, launches=len(runs),
+         max_abs_err_stack_below_sp=err, **res,
+         bound_by=sorted({b[1] for b in bnds}), timed_by=timed_by,
+         per_launch=[[r["lanes"], r["live"], r["Q"], r["pops"], r["pushes"],
+                      r["emits"], r["rows_read"], round(r["ms"], 5),
+                      round(r["plain_ms"], 2), round(b[0], 6)]
+                     for r, b in zip(runs, bnds)])
+    by = max(("bytes", "operations"), key=lambda k: sum(b[0] for b in bnds if b[1] == k))
+    return (err, res["ms"] / n, res["plain_ms"] / n, (res["bound_ms"] / n, by),
+            timed_by[0] if timed_by == ["device_records"] else "events")
+
+
 def entry(name, src, replaces, launches, err, ms, p_ms, bnd, timed_by,
           launches_in="main path"):
     """One element of the kernels line. `ms` is the kernel's device time
@@ -584,7 +646,7 @@ def entry(name, src, replaces, launches, err, ms, p_ms, bnd, timed_by,
 
 def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     """One instanced scene's kernels against their plain versions at its
-    main path's shapes: B4 in both modes on the camera rays; B5, and B6 and
+    main path's shapes: B4 on the camera rays (bit for bit); B5, and B6 and
     B7 with the per-item instance word, on the first bounce batch;
     closest_hit against the brute-force reference on `brute_rays` of those
     rays. Returns {key: (max_abs_err, ms, plain
@@ -592,11 +654,10 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     (ro, rd, W, eps)."""
 
     import lupinpathtracer_tpu_torch as lt
-    from lupinpathtracer_tpu_torch.accel.superleaf import TOP_COLS, TOP_FAN
     from lupinpathtracer_tpu_torch.core.vec3 import V3
     from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
-    from lupinpathtracer_tpu_torch.tools import prof_pair
+    from lupinpathtracer_tpu_torch.tools import prof_pair, prof_top
 
     F32_MAX = dk.F32_MAX
     SP, n_sl, n_inst = ts.sl_stride, ts.sl_count, ts.num_instances
@@ -607,33 +668,23 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     B = ro.x.shape[0]
     out = {}
 
-    # B4, both modes, on the camera rays.
+    # B4 on the camera rays: each leaf visit also moves the ray to mesh
+    # space (its 64-byte gsl_meta row read).
     work4: dict = {}
     p_b4, p4 = plain_ms(lambda: packet.packet_traverse_plain(
         ts, ro, rd, eps, W, counts=work4))
-    k4 = {}
-    for mode, stream in (("resident", False), ("stream", True)):
-        t_ms, k4[mode], by = kernel_ms(
-            lambda: packet.packet_traverse(ts, ro, rd, eps, W, stream=stream),
-            "packet_kernel", 5)
-        res = compare_hits(k4[mode], p4, F32_MAX)
-        assert res["hit_flag_mismatch"] == 0, res
-        tables = (work4["leaf_visits"] * 64 if stream
-                  else n_sl * 8 + n_inst * 48)
-        bnd = bound_ms(
-            work4["tri_tests"] * PAIR_OPS + work4["box_tests"] * SLAB_OPS
-            + work4["leaf_visits"] * LEAF_FRAME_OPS,
-            B * 24 + B * 20 + work4["chunks"] * work4["chunk_tris"] * 160
-            + rows * TOP_FAN * 36 + ts.sl_sub.numel() * 4 + tables)
-        out["b4_" + mode] = (res["max_abs_err"], t_ms, p_b4, bnd, by)
-    modes_equal = all(bool(torch.equal(a, b))
-                      for a, b in zip(k4["resident"], k4["stream"]))
+    t_b4, k4, by4 = kernel_ms(lambda: packet.packet_traverse(ts, ro, rd, eps, W),
+                              "packet_kernel", 5)
+    res = compare_hits(k4, p4, F32_MAX)
+    assert_equal(k4, p4, "B4 two-level")
+    out["b4"] = (res["max_abs_err"], t_b4, p_b4, b4_bound(
+        work4, B, B * 20, rows, ts.sl_sub.numel(),
+        extra_ops=work4["leaf_visits"] * LEAF_FRAME_OPS,
+        extra_bytes=work4["leaf_visits"] * 64), by4)
     hits4 = int((p4[0] < F32_MAX).sum())
-    emit("b4_two_level_vs_plain", scene=tag, hits=hits4,
-         routed_mode="resident" if packet.tables_resident(ts) else "stream",
-         modes_equal=modes_equal, ms={m: out["b4_" + m][1] for m in k4},
-         **work4, **res)
-    assert modes_equal and hits4 > 0
+    emit("b4_vs_plain", scene=tag, hits=hits4, bit_for_bit=True, ms=t_b4,
+         bound_ms=out["b4"][3][0], **work4, **res)
+    assert hits4 > 0
 
     # The first bounce batch, from the camera hits.
     h_cam = intersect.closest_hit(ts, ro, rd, eps, W=W)
@@ -646,12 +697,13 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
             intersect._pad(d.z, pad, 0.0))
     S = bvh.stack_depth(ts)
     Q = intersect.WF_Q_DIVERGENT
-    tab = ts.top_tab.float()
+    tab = ts.top_tab
     stack0 = torch.zeros((S, Bp), dtype=torch.int32, device=dev)
     sp0 = (torch.arange(Bp, device=dev) < B).to(torch.int32)
     bt0 = torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev)
 
-    # B5 on that batch's first round (its stack is updated in place).
+    # B5 on that batch's first round (its stack is updated in place and
+    # compared below each lane's sp).
     t_b5, k5, by5 = kernel_ms(lambda: bvh.top_traverse(
         tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl),
         "top_kernel", 5)
@@ -659,21 +711,16 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     p_b5, p5 = plain_ms(lambda: bvh.top_traverse_plain(
         tab, op, dp, bt0, stack0.clone(), sp0, S=S, Q=Q, n_sl=n_sl,
         counts=work5))
-    b5_equal = [a is b if a is None else bool(torch.equal(a, b))
-                for a, b in zip(k5, p5)]
-    err5 = max(float((a.long() - b.long()).abs().max())
-               for a, b in zip(k5, p5) if a is not None)
+    err5 = prof_top.max_abs_diff(k5, p5, S)
     aabb5 = int(k5[5].sum())
+    out["b5"] = (err5, t_b5, p_b5, b5_bound(
+        Bp, Q, aabb5, work5["pops"], work5["pushes"],
+        0 if k5[4] is None else k5[4].numel(), work5["rows_read"]), by5)
     emit("b5_two_level_vs_plain", scene=tag, lanes=Bp, Q=Q, S=S,
          emits=int(k5[1].sum()), aabb_tests=aabb5, histogram=k5[4] is not None,
-         pending=int((k5[3] > 0).sum()), outputs_equal=b5_equal,
-         max_abs_err=err5, **work5)
-    assert all(b5_equal) and err5 == 0, b5_equal
-    out["b5"] = (err5, t_b5, p_b5, bound_ms(
-        aabb5 * (SLAB_OPS + SORT_OPS),
-        Bp * (28 + 2 * 4 + Q * 4 + 2 * 4)
-        + (work5["pops"] + work5["pushes"]) * 4
-        + bvh.hist_bins(n_sl) * 4 + rows * TOP_COLS * 4), by5)
+         pending=int((k5[3] > 0).sum()), max_abs_err_stack_below_sp=err5,
+         ms=t_b5, plain_ms=p_b5, bound_ms=out["b5"][3][0], **work5)
+    assert err5 == 0
 
     # B6 on the round's pairs, each item's rays moved to mesh space by its
     # instance word in the kernel.
@@ -751,18 +798,18 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
 
 def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                      timed_accums=3):
-    """The two-level route: the 100,000-instance field's build, kernels and
-    main path, and the 2,000-instance field that takes B4's resident mode.
-    Returns their kernel entries and the 100k field's (scene, camera rays,
-    W, eps) for the B6' phase."""
+    """The two-level route: the 100,000-instance field's build, kernels,
+    main path and B5/B6 replays, and the 2,000-instance field's kernels and
+    one accumulation. Returns their kernel entries and the 100k field's
+    (scene, camera rays, W, eps) for the B6' phase."""
 
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.io import synthetic
     from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
 
-    counters = (bvh.LAUNCHES, packet.LAUNCHES, packet.MODE_LAUNCHES,
-                dk.LAUNCHES, mega.LAUNCHES, intersect.HOST_SYNCS)
+    counters = (bvh.LAUNCHES, packet.LAUNCHES, dk.LAUNCHES, mega.LAUNCHES,
+                intersect.HOST_SYNCS)
     baked = lt.BakedPathtraceParams(max_bounces=bounces, samples_per_pixel=spp)
     scenes = {}
     for tag, n in (("instanced100k", FIELD_INSTANCES),
@@ -775,25 +822,18 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
         ts = lt.build_scene_torch(field, device=dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        routes = dict(
-            packet_eligible=intersect.packet_eligible(ts),
-            b4_mode="resident" if packet.tables_resident(ts) else "stream")
         emit("instanced_build", scene=tag, instances=ts.num_instances,
              generate_s=gen_s, build_scene_torch_s=build_s, sl_count=ts.sl_count,
              msl_count=ts.msl_count, sl_stride=ts.sl_stride,
              nsub=int(ts.sl_sub.shape[1]), top_rows=int(ts.top_tab.shape[0]),
              top_depth=ts.top_depth, histogram_bins=bvh.hist_bins(ts.sl_count),
-             **routes)
-        assert ts.use_bvh and ts.two_level and routes["packet_eligible"]
-        scenes[tag] = (ts, cams, routes)
-    assert scenes["instanced100k"][2] == dict(packet_eligible=True,
-                                              b4_mode="stream")
-    assert scenes["instanced2k"][2] == dict(packet_eligible=True,
-                                            b4_mode="resident")
+             packet_eligible=intersect.packet_eligible(ts))
+        assert ts.use_bvh and ts.two_level and intersect.packet_eligible(ts)
+        scenes[tag] = (ts, cams)
 
     kernels = []
     state = None
-    for tag, (ts, cams, routes) in scenes.items():
+    for tag, (ts, cams) in scenes.items():
         big = tag == "instanced100k"
         meas, cam_batch = two_level_kernels(
             ts, cams, tag, dev, width, height, brute_rays=1024 if big else 4096)
@@ -813,7 +853,6 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                                     device=dev, stats=stats)
         wall = time.perf_counter() - t0
         launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
-        by_mode = dict(packet.MODE_LAUNCHES)
         dense_launches = {**dk.LAUNCHES, **mega.LAUNCHES}
         emit("main_path_instanced", scene=tag, width=width, height=height,
              integrator="STANDARD", bounces=bounces, spp=spp,
@@ -821,7 +860,6 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
              s_per_accumulation=wall / accums, rays=stats["rays"],
              mrays_per_s=stats["rays"] / wall / 1e6,
              launches_per_accumulation={k: v / accums for k, v in launches.items()},
-             b4_launches_by_mode=by_mode,
              wavefront_host_syncs_per_accumulation=(
                  intersect.HOST_SYNCS["wavefront"] / accums),
              dense_launches=dense_launches, image_mean=float(img.mean()),
@@ -831,8 +869,6 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
         for key in ("packet_traverse", "top_traverse", "pair_intersect",
                     "attr_fetch"):
             assert launches[key] > 0, launches
-        b4_mode = routes["b4_mode"]
-        assert by_mode[b4_mode] == launches["packet_traverse"], by_mode
         if big:
             state = (ts, *cam_batch)
             prof = device_profile(lambda: lt.render_progressive(
@@ -840,15 +876,19 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
             emit("main_path_instanced_profile", scene=tag, accumulations=1,
                  card=smi, device_busy_share_of_timed_wall=(
                      prof["device_busy_ms"] * 1e-3 * accums / wall), **prof)
+            # B5's entry: the means over the replayed main-path launches.
+            meas["b5"] = emit_b5_launches(ts, desc, width, height, spp,
+                                          bounces, tag, smi)
             emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi)
 
         kernels += [
-            entry(f"B4 packet_traverse (two-level, {b4_mode}; {tag})",
+            entry(f"B4 packet_traverse (two-level; {tag})",
                   "packet.cu", "lupinpathtracer_tpu/kernels/pallas_packet.py:1011",
-                  launches["packet_traverse"], *meas["b4_" + b4_mode]),
-            entry(f"B5 top_traverse ({tag})", "bvh.cu",
-                  "lupinpathtracer_tpu/kernels/pallas_bvh.py:344", launches["top_traverse"],
-                  *meas["b5"]),
+                  launches["packet_traverse"], *meas["b4"]),
+            entry(f"B5 top_traverse ({tag}; "
+                  + ("mean per main-path launch)" if big else "first bounce round)"),
+                  "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:344",
+                  launches["top_traverse"], *meas["b5"]),
             entry(f"B6 pair_intersect (instance word; {tag})", "pair_intersect.cuh",
                   "lupinpathtracer_tpu/kernels/pallas_bvh.py:665", launches["pair_intersect"],
                   *meas["b6"]),
@@ -856,10 +896,6 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                   "lupinpathtracer_tpu/kernels/pallas_bvh.py:896", launches["attr_fetch"],
                   *meas["b7"]),
         ]
-        other = "b4_" + ("resident" if b4_mode == "stream" else "stream")
-        emit("two_level_off_route_times", scene=tag, card=smi,
-             ms={other: meas[other][1]}, bound_ms={other: meas[other][3][0]},
-             timed_by={other: meas[other][4]})
     return kernels, state
 
 

@@ -1,13 +1,17 @@
 // Device helpers shared by B4 (packet.cu) and B5-B7 (bvh.cu): the slab test
-// with NaN-propagating min/max, and the IA_* rows of one BVH hit -- the
-// winner's packed attribute row interpolated at its barycentrics and, for
-// two-level items, rotated by the instance normal matrix, as
+// with NaN-propagating min/max, the 4-triangle test loop of B4 and B6
+// (test_tris, on the packed coefficient table), and the IA_* rows of one
+// BVH hit -- the winner's packed attribute row interpolated at its
+// barycentrics and, for two-level items, rotated by the instance normal
+// matrix, as
 // lupinpathtracer_tpu/kernels/pallas_bvh.py::_attr_kernel (:750-825) and
 // pallas_packet.py::_attr_phase (:784-809) compute them. The plain versions
 // are kernels/bvh.slab, kernels/bvh.interp_rows and
 // kernels/bvh.rotate_rows.
 
 #pragma once
+
+#include "tri_test.cuh"
 
 namespace lupin_bvh {
 
@@ -107,6 +111,58 @@ __device__ __forceinline__ void write_rows(const float* a, float hu, float hv,
     }
     out[22 * stride] = 0.0f;
     out[23 * stride] = 0.0f;
+  }
+}
+
+// Triangles [base, base + n) (n a multiple of 4) of one slice against the
+// ray r, folded into the running minimum in index order: w points at the
+// slice's triangle base in the packed layout (coefficient q of triangles
+// 4i..4i+3 at w + 160 i + 4 q); GLOBAL reads it through L1/L2, else from
+// shared memory.
+template <bool GLOBAL>
+__device__ __forceinline__ void test_tris(const float* w, int n, int base,
+                                          const float* r, float eps, bool pre,
+                                          float& bt, float& bu, float& bv,
+                                          float& bdet, int& bidx) {
+  for (int j = 0; j < n; j += 4) {
+    float4 m4[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float4 acc;
+#pragma unroll
+      for (int q = 0; q < 10; ++q) {
+        const float4* src = reinterpret_cast<const float4*>(w + 40 * j + 4 * (c * 10 + q));
+        const float4 y = GLOBAL ? __ldg(src) : *src;
+        if (q == 0) {
+          acc = make_float4(r[0] * y.x, r[0] * y.y, r[0] * y.z, r[0] * y.w);
+        } else {
+          acc.x = acc.x + r[q] * y.x;
+          acc.y = acc.y + r[q] * y.y;
+          acc.z = acc.z + r[q] * y.z;
+          acc.w = acc.w + r[q] * y.w;
+        }
+      }
+      m4[c] = acc;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float det = lupin_tri::lane_of(m4[0], k), nu = lupin_tri::lane_of(m4[1], k);
+      const float nv = lupin_tri::lane_of(m4[2], k), ntn = lupin_tri::lane_of(m4[3], k);
+      if (pre && lupin_tri::surely_invalid(det, nu, nv, ntn)) continue;
+      const float d = 1.0f / det;
+      const float tq = ntn * d;
+      const float uq = nu * d;
+      const float vq = nv * d;
+      const bool valid = (uq >= 0.0f) && (vq >= 0.0f) && (uq + vq <= 1.0f) && (tq >= eps);
+      const float tt = valid ? tq : F32_MAX;
+      if (tt < bt) {
+        bt = tt;
+        bu = uq;
+        bv = vq;
+        bdet = det;
+        bidx = base + j + k;
+      }
+    }
   }
 }
 

@@ -166,58 +166,6 @@ __device__ __forceinline__ void stage_tile(const PairArgs& a, const int* dm,
   asm volatile("cp.async.commit_group;\n");
 }
 
-// Triangles [base, base + n) (n a multiple of 4) of one slice against the
-// ray r, folded into the running minimum in index order: w points at the
-// slice's triangle base in the packed layout (coefficient q of triangles
-// 4i..4i+3 at w + 160 i + 4 q); GLOBAL reads it through L1/L2, else from
-// shared memory.
-template <bool GLOBAL>
-__device__ __forceinline__ void test_tris(const float* w, int n, int base,
-                                          const float* r, float eps, bool pre,
-                                          float& bt, float& bu, float& bv,
-                                          float& bdet, int& bidx) {
-  for (int j = 0; j < n; j += 4) {
-    float4 m4[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float4 acc;
-#pragma unroll
-      for (int q = 0; q < 10; ++q) {
-        const float4* src = reinterpret_cast<const float4*>(w + 40 * j + 4 * (c * 10 + q));
-        const float4 y = GLOBAL ? __ldg(src) : *src;
-        if (q == 0) {
-          acc = make_float4(r[0] * y.x, r[0] * y.y, r[0] * y.z, r[0] * y.w);
-        } else {
-          acc.x = acc.x + r[q] * y.x;
-          acc.y = acc.y + r[q] * y.y;
-          acc.z = acc.z + r[q] * y.z;
-          acc.w = acc.w + r[q] * y.w;
-        }
-      }
-      m4[c] = acc;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float det = lupin_tri::lane_of(m4[0], k), nu = lupin_tri::lane_of(m4[1], k);
-      const float nv = lupin_tri::lane_of(m4[2], k), ntn = lupin_tri::lane_of(m4[3], k);
-      if (pre && lupin_tri::surely_invalid(det, nu, nv, ntn)) continue;
-      const float d = 1.0f / det;
-      const float tq = ntn * d;
-      const float uq = nu * d;
-      const float vq = nv * d;
-      const bool valid = (uq >= 0.0f) && (vq >= 0.0f) && (uq + vq <= 1.0f) && (tq >= eps);
-      const float tt = valid ? tq : F32_MAX;
-      if (tt < bt) {
-        bt = tt;
-        bu = uq;
-        bv = vq;
-        bdet = det;
-        bidx = base + j + k;
-      }
-    }
-  }
-}
-
 // 2 blocks per SM: 128 registers (16 B of spills).
 __global__ void __launch_bounds__(PI_THREADS, 2)
 pair_hit_kernel(const PairArgs a, const PairSplit sp) {

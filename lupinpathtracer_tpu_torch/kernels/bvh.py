@@ -6,7 +6,9 @@ The counterpart of lupinpathtracer_tpu/kernels/pallas_bvh.py:
 - B5 `top_traverse` (`_top_kernel`, pallas_call at pallas_bvh.py:344): one
   resumable round of 8-wide top-tree traversal per ray, emitting up to Q
   superleaf ids near to far, plus the per-superleaf demand histogram and
-  the per-ray AABB-test count.
+  the per-ray AABB-test count. The kernel (csrc/bvh.cu) reads the top
+  table's packed rows (`top_rows`, kept on the table) and runs a launch of
+  few rays at eight lanes per ray, a larger one at one thread per ray.
 - B6 `pair_intersect` (`_pair_kernel`, :665): closest hit of superleaf-sorted
   rays against their work item's superleaf, local triangle index out; with
   an instance word per item (two-level scenes) the item's rays first move
@@ -157,7 +159,8 @@ def top_traverse_plain(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl,
     """Plain version of B5: every lane pops in lockstep, with the Pallas
     kernel's per-lane semantics (pallas_bvh.py:160-240). `stack` is updated
     in place, as the kernel updates it. `counts`, a dict, receives the stack
-    entries popped and pushed, for a bound."""
+    entries popped and pushed, the internal pops (those that read a row)
+    and the distinct rows they read, for a bound."""
 
     Bp = ro.x.shape[0]
     dev = ro.x.device
@@ -165,7 +168,8 @@ def top_traverse_plain(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl,
     ivx, ivy, ivz = 1.0 / rd.x, 1.0 / rd.y, 1.0 / rd.z
     stack_io = stack
     sp = sp.clone()
-    pops = pushes = 0
+    pops = pushes = internal = 0
+    read = torch.zeros(tab.shape[0], dtype=torch.bool, device=dev)
     cnt = torch.zeros(Bp, dtype=torch.int32, device=dev)
     out = torch.full((Q, Bp), -1, dtype=torch.int32, device=dev)
     aabb = torch.zeros(Bp, dtype=torch.int32, device=dev)
@@ -184,6 +188,9 @@ def top_traverse_plain(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl,
         cnt = cnt + em.to(torch.int32)
 
         is_int = active & (node >= 0)
+        if counts is not None:
+            internal += int(is_int.sum())
+            read[node[is_int].long()] = True
         g = tab[torch.where(is_int, node, 0).long()]  # (Bp, 8, 10)
         ts, refs = [], []
         for ci in range(TOP_FAN):
@@ -224,7 +231,8 @@ def top_traverse_plain(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl,
         cnt_sl = torch.bincount(keys, minlength=nb + 1)[:nb].to(torch.int32)
     stack_io.copy_(stack)
     if counts is not None:
-        counts.update(pops=pops, pushes=pushes)
+        counts.update(pops=pops, pushes=pushes, internal_pops=internal,
+                      rows_read=int(read.sum()))
     return out, cnt, stack_io, sp, cnt_sl, aabb
 
 
@@ -304,6 +312,34 @@ def pair_table(W4):
     table = flat.reshape(40, Tg, 4).permute(1, 0, 2).contiguous()
     W4.__dict__["_pair_table"] = (W4._version, table)
     return table
+
+
+def top_rows(tab):
+    """The top table packed for B4 and B5: geo (rows, TOP_FAN, 8) f32
+    [lo.xyz, hi.xyz, isleaf, 0], so that a child's box is two 16-byte loads
+    and a row 256 contiguous bytes, and refs (rows, TOP_FAN) i32
+    (child_ref << 1) | is_leaf, each reference decoded once from its three
+    float fields (pallas_packet.py:72-104). isleaf keeps the table's
+    marker: 1 leaf, 0 internal, -1 an empty slot. Built once per table and
+    kept on it (a scene's top_tab: every caller gets the same tensors,
+    which must not be modified); rebuilt if the table was written since."""
+
+    cached = tab.__dict__.get("_top_rows")
+    if cached is not None and cached[0] == tab._version:
+        return cached[1]
+    rows = tab.shape[0]
+    t3 = tab.float().reshape(rows, TOP_FAN, CH_STRIDE)
+    geo = torch.cat([
+        t3[:, :, CH_LO], t3[:, :, CH_HI], t3[:, :, CH_ISLEAF:CH_ISLEAF + 1],
+        torch.zeros((rows, TOP_FAN, 1), dtype=torch.float32, device=tab.device),
+    ], dim=2).contiguous()
+    ref = (t3[:, :, CH_H2].to(torch.int32) * 65536
+           + t3[:, :, CH_HI8].to(torch.int32) * 256
+           + t3[:, :, CH_LO8].to(torch.int32))
+    is_leaf = (t3[:, :, CH_ISLEAF] > 0.5).to(torch.int32)
+    out = (geo, ((ref << 1) | is_leaf).contiguous())
+    tab.__dict__["_top_rows"] = (tab._version, out)
+    return out
 
 
 def mesh_space(m12, ro, rd):
@@ -529,13 +565,15 @@ def _items_check(blk, sl, lo, hi, n_items):
 
 def top_traverse(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl):
     """B5: one round of top-tree traversal. tab: (rows, TOP_COLS) top table
-    (bf16 or its f32 values); ro/rd: V3 over Bp lanes; best_t (Bp,);
-    stack (S, Bp) i32, contiguous, updated in place; sp (Bp,) i32. Returns
-    (sl (Q, Bp) i32 with -1 empties, cnt (Bp,), stack (the argument), sp',
-    cnt_sl (hist_bins(n_sl),) i32 or None, aabb (Bp,) i32 slab tests this
-    round)."""
+    (bf16 or its f32 values; the kernel reads its packed rows, top_rows,
+    kept on the tensor: pass the scene's top_tab); ro/rd: V3 over Bp lanes;
+    best_t (Bp,); stack (S, Bp) i32, contiguous, updated in place; sp (Bp,)
+    i32. Returns (sl (Q, Bp) i32 with -1 empties, cnt (Bp,), stack (the
+    argument), sp', cnt_sl (hist_bins(n_sl),) i32 or None, aabb (Bp,) i32
+    slab tests this round). Of the stack only the entries below a lane's
+    sp' are defined: the only ones a later round reads (entries pushed and
+    popped within the round may not be written)."""
 
-    tab = tab.float().contiguous()
     if tab.dim() != 2 or tab.shape[1] != TOP_COLS:
         raise ValueError(f"tab must be (rows, {TOP_COLS}), got {tuple(tab.shape)}")
     Bp = ro.x.shape[0]
@@ -550,22 +588,35 @@ def top_traverse(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl):
 
     from . import cuda_build
 
-    fn = cuda_build.load("bvh").lupin_top_traverse
+    out = _top_launch(cuda_build.load("bvh"), tab, ro, rd, best_t, stack, sp,
+                      S=S, Q=Q, n_sl=n_sl)
+    LAUNCHES["top_traverse"] += 1
+    return out
+
+
+def _top_launch(lib, tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl):
+    """B5's kernel from the loaded library `lib` (the checkout's build of
+    csrc/bvh.cu, or a copy of it: tools/prof_top.py)."""
+
+    from . import cuda_build
+
+    fn = lib.lupin_top_traverse
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 7)
     dev = ro.x.device
+    Bp = ro.x.shape[0]
     nb = hist_bins(n_sl)
+    geo, refs = top_rows(tab)
     sl = torch.empty((Q, Bp), dtype=torch.int32, device=dev)
     cnt, sp_o, aabb = (torch.empty(Bp, dtype=torch.int32, device=dev) for _ in range(3))
     hist = torch.zeros(max(nb, 1), dtype=torch.int32, device=dev)
-    ins = [x.contiguous() for x in (tab, *ro, *rd, best_t, sp)]
+    ins = [x.contiguous() for x in (*ro, *rd, best_t, sp)]
     with torch.cuda.device(dev):
-        rc = fn(*(x.data_ptr() for x in ins), S, Q, Bp, nb, stack.data_ptr(),
-                sl.data_ptr(), cnt.data_ptr(), sp_o.data_ptr(),
-                hist.data_ptr(), aabb.data_ptr(), _stream(dev))
+        rc = fn(geo.data_ptr(), refs.data_ptr(), *(x.data_ptr() for x in ins),
+                S, Q, Bp, nb, stack.data_ptr(), sl.data_ptr(), cnt.data_ptr(),
+                sp_o.data_ptr(), hist.data_ptr(), aabb.data_ptr(), _stream(dev))
     cuda_build.check(rc, "top_traverse")
-    LAUNCHES["top_traverse"] += 1
     return sl, cnt, stack, sp_o, (hist if nb else None), aabb
 
 

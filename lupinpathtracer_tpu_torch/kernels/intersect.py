@@ -19,11 +19,13 @@ ray_tri_dst (pathtracer.wgsl:2922-2943).
   conditions are host syncs, counted in HOST_SYNCS.
 - Two-level (instanced) scenes keep one mesh-space soup per unique mesh and
   a top tree over every (instance x mesh superleaf) pair. They take the same
-  wavefront: B4 in its resident or stream mode on coherent batches, and on
-  bounce batches B6/B7 with a per-item instance word, whatever the number
-  of instances (the JAX package's large-instance route, which moves the
-  rays and rotates the rows outside the kernels, is a limit of the TPU's
-  scalar memory and has no counterpart here). Triangle ids are global
+  wavefront: B4 on coherent batches (one mode: each leaf's gsl_meta row,
+  whatever the size of the instance tables; the JAX package's resident and
+  stream modes are a limit of the TPU's scalar memory), and on bounce
+  batches B6/B7 with a per-item instance word, whatever the number of
+  instances (the JAX package's large-instance route, which moves the rays
+  and rotates the rows outside the kernels, is a limit of the TPU's scalar
+  memory and has no counterpart here). Triangle ids are global
   (superleaf * stride + lane), the
   backside flag needs no det-sign fixup, and attributes always come from
   `wavefront_fetch_attrs`. `closest_hit_brute_two_level` is their
@@ -334,7 +336,8 @@ _GATE_LOGGED: set = set()
 
 
 def packet_eligible(scene) -> bool:
-    """Whether kernel B4 takes this scene (static capacity gates)."""
+    """Whether kernel B4 takes this scene (static capacity gates: the JAX
+    package's, and the port's packet stack, PACKET_STACK_MAX entries)."""
 
     if scene.top_root_is_leaf:
         return False
@@ -347,6 +350,8 @@ def packet_eligible(scene) -> bool:
         reason = f"{scene.sl_count} superleaves > {max_gsl}"
     elif geo_bytes > PACKET_GEO_MAX or refs_bytes > PACKET_REFS_MAX:
         reason = f"top tree of {rows} rows"
+    elif packet.stack_size(scene) > packet.PACKET_STACK_MAX:
+        reason = f"top tree of depth {scene.top_depth}"
     if reason is None:
         return True
     if reason not in _GATE_LOGGED:
@@ -429,7 +434,7 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
     real = torch.arange(Bp, device=dev) < B
     if active is not None:
         real = real & _pad(active, pad, False)
-    tab = scene.top_tab.float()
+    tab = scene.top_tab
     c = dict(
         stack=torch.zeros((S, Bp), dtype=torch.int32, device=dev),
         sp=real.to(torch.int32),

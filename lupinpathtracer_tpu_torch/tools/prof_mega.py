@@ -8,7 +8,7 @@ per SM (at most 65536 / (128 x 8) = 64 registers a thread). This tool
 compiles a copy of that source for each value of VALUES, the bound's
 second argument replaced (0: no second argument, as B3's earlier design
 had it; ptxas then picks fewer registers than with 1, the loosest value),
-into the build directory, all nvcc processes at once, and times each
+into the build directory (prof_pair.build_copies), and times each
 build on the Cornell main path's launch (512x512 pixels, 64 spp, 8
 bounces, STANDARD), in turns.
 Every build computes the same function with the same operations: each
@@ -22,9 +22,7 @@ limit. Needs a CUDA GPU and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
 import re
 import subprocess
 import sys
@@ -32,59 +30,34 @@ import sys
 import numpy as np
 import torch
 
-from .._paths import BUILD_DIR
-from ..kernels import cuda_build, mega
-from .prof_pair import kernel_ms
+from ..kernels import mega
+from .prof_pair import build_copies, kernel_ms, ptxas_usage
 
 VALUES = (0, 1, 8, 10, 12, 16)  # 16 blocks of 4 warps fill an SM's 64 warps
 BOUND = "__launch_bounds__(THREADS, 8)"  # as csrc/mega.cu has it
 
 
-def build(values=VALUES) -> dict:
-    """{value: (loaded library, ptxas output)}: csrc/mega.cu with its bound
-    set to each value, compiled with the port's flags."""
-
-    src = open(os.path.join(cuda_build.CSRC, "mega.cu")).read()
-    if src.count(BOUND) != 1:
-        raise RuntimeError(f"csrc/mega.cu must hold {BOUND} once")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for v in values:
-        path = os.path.join(BUILD_DIR, f"mega_min_blocks_{v}.cu")
-        bound = f"__launch_bounds__(THREADS{f', {v}' if v else ''})"
-        with open(path, "w") as f:
-            f.write(src.replace(BOUND, bound))
-        lib = path[:-3] + ".so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-               "-I", cuda_build.CSRC, "-o", lib, path]
-        procs[v] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True))
-    out = {}
-    for v, (lib, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for mega.cu with {v} blocks per SM:\n{log}")
-        out[v] = (ctypes.CDLL(lib), log)
-    return out
+def _bound(v: int) -> str:
+    return f"__launch_bounds__(THREADS{f', {v}' if v else ''})"
 
 
-def ptxas_usage(out: str) -> dict:
+# The copies of csrc/mega.cu (prof_pair.build_copies), one per value; the
+# shipped value's is the source as it is.
+VARIANTS = {f"min_blocks_{v}": () if _bound(v) == BOUND else ((BOUND, _bound(v)),)
+            for v in VALUES}
+
+
+def usage(log: str) -> dict:
     """{"smem" | "global": (registers, spill store bytes)} of the two
-    mega_kernel instantiations in nvcc's -Xptxas -v output."""
+    mega_kernel instantiations (the triangle table in shared memory or
+    read through L1) in a copy's ptxas output."""
 
-    usage, which, spill = {}, None, 0
-    for line in out.splitlines():
-        m = re.search(r"mega_kernelILb([01])E", line)
+    out = {}
+    for name, use in ptxas_usage(log).items():
+        m = re.search(r"mega_kernelILb([01])E", name)
         if m:
-            which = "smem" if m.group(1) == "1" else "global"
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and which:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and which:
-            usage[which] = (int(m.group(1)), spill)
-            which = None
-    return usage
+            out["smem" if m.group(1) == "1" else "global"] = use
+    return out
 
 
 def main_path_launch(dev):
@@ -114,7 +87,7 @@ def sweep(reps: int = 3) -> dict:
     build's output differs from the checkout's build."""
 
     dev = torch.device("cuda", 0)
-    builds = build()
+    builds = dict(zip(VALUES, build_copies("mega", VARIANTS).values()))
     scene, W, args, eps = main_path_launch(dev)
     ref = mega._launch(scene, W, *args, eps, 0)
     times = {v: [] for v in VALUES}
@@ -129,7 +102,7 @@ def sweep(reps: int = 3) -> dict:
             times[v].append(ms)
     out = {}
     for v in VALUES:
-        use = ptxas_usage(builds[v][1])
+        use = usage(builds[v][1])
         out[v] = dict(ms=float(np.mean(times[v])), runs_ms=times[v],
                       registers={k: u[0] for k, u in use.items()},
                       spill_bytes={k: u[1] for k, u in use.items()})

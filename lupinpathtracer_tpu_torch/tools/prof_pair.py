@@ -33,7 +33,10 @@ the state, and the card's name and power limit. Needs a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -41,10 +44,11 @@ import time
 import numpy as np
 import torch
 
+from .._paths import BUILD_DIR
 from ..core import rng as rng_mod
 from ..core.types import PathtraceDesc
 from ..core.vec3 import V3
-from ..kernels import bvh, intersect
+from ..kernels import bvh, cuda_build, intersect
 from ..render import integrators
 from ..render.renderer import _camera_args, _pixel_batch
 
@@ -97,6 +101,118 @@ def kernel_ms(fn, kernel: str, reps: int):
     return total / reps, out, "events"
 
 
+def _records(fns, kernel: str, reps: int, pause: float = 0.05):
+    """Spans (start, end) of the device records of `kernel` while fns run in
+    turn reps times inside one profiler window, in start order."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pause)
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+        time.sleep(pause)
+    return sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kernel in e.name)
+
+
+def kernel_ms_each(calls, kernel: str, reps: int, group: int = 8):
+    """[(ms, timed_by)] per call of `calls`, each launching the kernel whose
+    name contains `kernel` once: a group of calls runs in turn reps times
+    inside one profiler window (after a warm-up round), and each call's
+    device records are averaged. The profiler drops a record of a short
+    kernel now and then, and then a group's records no longer say which
+    call they belong to: that group's calls get a window each, whose
+    records (at least one) are all the call's; a call left with none is
+    timed by kernel_ms."""
+
+    out = []
+    for g0 in range(0, len(calls), group):
+        part = calls[g0:g0 + group]
+        for fn in part:
+            fn()
+        spans = _records(part, kernel, reps)
+        n = len(part)
+        if len(spans) == reps * n:
+            out += [(sum(spans[r * n + i][1] - spans[r * n + i][0]
+                         for r in range(reps)) / reps / 1e3, "device_records")
+                    for i in range(n)]
+            continue
+        print(f"# kernel_ms_each: the profiler kept {len(spans)} of {reps * n} "
+              f"records of {kernel}; timing the group's calls one by one",
+              file=sys.stderr, flush=True)
+        for fn in part:
+            one = _records([fn], kernel, reps)
+            if one:
+                out.append((sum(b - a for a, b in one) / len(one) / 1e3,
+                            "device_records"))
+            else:
+                ms, _, by = kernel_ms(fn, kernel, reps)
+                out.append((ms, by))
+    return out
+
+
+def build_copies(name: str, variants: dict) -> dict:
+    """{key: (loaded library, ptxas output)}: copies of csrc/<name>.cu, each
+    with its variant's (old, new) text replacements (each old text must
+    occur once), compiled into the build directory as lib <name>_<key>.so
+    with the port's flags and -Xptxas -v, all nvcc processes at once. The
+    profiling tools' copies of a kernel with one choice changed."""
+
+    src = open(os.path.join(cuda_build.CSRC, f"{name}.cu")).read()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for key, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"csrc/{name}.cu must hold {old!r} once")
+            text = text.replace(old, new)
+        path = os.path.join(BUILD_DIR, f"{name}_{key}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        lib = path[:-3] + ".so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-I", cuda_build.CSRC, "-o", lib, path]
+        procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for key, (lib, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu ({key}):\n{log}")
+        out[key] = (ctypes.CDLL(lib), log)
+    return out
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel's mangled name: (registers, spill store bytes)} of each entry
+    function in nvcc's -Xptxas -v output, in its order."""
+
+    usage, cur, props, spill = {}, None, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill = m.group(1), 0
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur is not None and props == cur:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            usage[cur] = (int(m.group(1)), spill)
+            cur = None
+    return usage
+
+
 def camera_rays(cam, width: int, height: int, device):
     """The first sample's camera rays of a width x height frame, in the
     renderer's lane order."""
@@ -129,7 +245,7 @@ def round1_state(scene, ro: V3, rd: V3, Q: int = intersect.WF_Q):
              sp=(torch.arange(Bp, device=dev) < B).to(torch.int32),
              best_t=torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev))
     args, kw, skey, order, n_real, _, _ = intersect._wf_pairs(
-        scene, scene.top_tab.float(), rop, rdp, c, S=S,
+        scene, scene.top_tab, rop, rdp, c, S=S,
         PB=intersect.WF_PAIR_BLOCK, Q=Q)
     return args, kw, dict(skey=skey, order=order, n_real=n_real, lanes=Bp)
 
@@ -158,8 +274,9 @@ def main_path_launches(scene, desc, width: int, height: int, spp: int,
     and replayed: per launch its positions, pairs, items, tiles of 256
     positions, the mean and largest mesh superleaves per tile, the split
     the kernel takes (bvh.pair_split), and the device times of B6 and of
-    V0 (its earlier design) on the same inputs, which must agree bit for
-    bit. Needs a CUDA GPU."""
+    V0 (its earlier design) on the same inputs (kernel_ms_each: the
+    launches in a few profiler windows per kernel), which must agree bit
+    for bit. Needs a CUDA GPU."""
 
     from .. import BakedPathtraceParams, render_progressive
 
@@ -180,8 +297,12 @@ def main_path_launches(scene, desc, width: int, height: int, spp: int,
             device=scene.wt_attr.device)
     finally:
         bvh.pair_intersect = real
+    b6 = kernel_ms_each([lambda a=a, k=k: real(*a, **k) for a, k in rec],
+                        "pair_hit_kernel", reps)
+    v0 = kernel_ms_each([lambda a=a, k=k: bvh.pair_intersect_variant("V0", *a, **k)
+                         for a, k in rec], "pair_kernel", reps)
     out = []
-    for a, k in rec:
+    for (a, k), (b6_ms, by6), (v0_ms, by0) in zip(rec, b6, v0):
         blk, msl, lo, hi, so = a[:5]
         P = so.x.shape[0]
         item = bvh.pair_item_map(blk, lo, hi, k["n_items"], k["pair_block"], P)
@@ -191,10 +312,8 @@ def main_path_launches(scene, desc, width: int, height: int, spp: int,
             tile * scene.msl_count + msl.long()[item[pos]]) // scene.msl_count)
         per_tile = per_tile[per_tile > 0].float()
         n_tiles = int(tile.max()) + 1 if pos.numel() else 0
-        b6_ms, b6, by6 = kernel_ms(lambda: real(*a, **k), "pair_hit_kernel", reps)
-        v0_ms, v0, by0 = kernel_ms(
-            lambda: bvh.pair_intersect_variant("V0", *a, **k), "pair_kernel", reps)
-        if not all(torch.equal(x, y) for x, y in zip(b6, v0)):
+        if not all(torch.equal(x, y) for x, y in zip(
+                real(*a, **k), bvh.pair_intersect_variant("V0", *a, **k))):
             raise AssertionError("B6 and V0 disagree on a main-path launch")
         out.append(dict(
             positions=P, pairs=int(pos.numel()), items=int(k["n_items"]),

@@ -12,14 +12,17 @@ reciprocal multiply), with its triangle table in shared memory (the Cornell
 box) and read through L1 (the box with a 520-triangle sphere). The BVH
 kernels B4-B7 equal their plain versions exactly on a 300k-triangle terrain
 (several superleaves, four sub-chunks each): the same tables walked in the
-same order with the same f32 arithmetic. B6 also equals the earlier design
-(B6' V0) bit for bit, with the sign pre-test on (eps > 0) and off (eps = 0)
-and on an all-empty grid. Both BVH routes are also held to
-closest_hit_bvh, the walk of the binary BVH (tolerances in that test).
-Two-level scenes: on a 2,000-instance field (small enough for B4's
-resident mode) both B4 modes, B6 and B7 with the instance word and without
-it (rays moved to mesh space, rows rotated, in PyTorch), and the B6'
-variants equal their plain versions exactly (V1/V3 select with rsqrt: the
+same order with the same f32 arithmetic (B4's packets of lanes on a shared
+stack visit exactly each lane's own nodes; B5 over resumed rounds with
+Q = 8 and 32, with and without its histogram, its stack compared below
+each lane's sp, the entries a later round reads). B6 also equals the
+earlier design (B6' V0) bit for bit, with the sign pre-test on (eps > 0)
+and off (eps = 0) and on an all-empty grid. Both BVH routes are also held
+to closest_hit_bvh, the walk of the binary BVH (tolerances in that test).
+Two-level scenes: on a 2,000-instance field B4's one two-level mode, B6
+and B7 with the instance word and without it (rays moved to mesh space,
+rows rotated, in PyTorch), and the B6' variants equal their plain versions
+exactly (V1/V3 select with rsqrt: the
 winner may differ on <= 1e-4 of hit lanes), and both routes are held to
 closest_hit_brute_two_level."""
 
@@ -36,7 +39,7 @@ from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
 from lupinpathtracer_tpu_torch.kernels import intersect, mega, packet
 from lupinpathtracer_tpu_torch.render import integrators
 from lupinpathtracer_tpu_torch.render.renderer import _camera_args, _pixel_batch
-from lupinpathtracer_tpu_torch.tools import prof_pair
+from lupinpathtracer_tpu_torch.tools import prof_pair, prof_top
 
 EPS = 1e-3
 
@@ -165,17 +168,30 @@ def terrain_rays():
 
 @pytest.mark.gpu
 def test_b4_packet_kernel_matches_plain_on_card(terrain_rays):
-    ts, W, (ro, rd), _ = terrain_rays
-    act = torch.tensor(np.random.default_rng(6).random(ro.x.shape[0]) < 0.9,
+    """B4 (a packet of 32 lanes per warp on one shared stack) against the
+    per-ray plain version on the camera rays and the bounce batch, with and
+    without attributes, with inactive lanes, and on batches whose size is
+    not a multiple of the packet."""
+
+    ts, W, (ro, rd), (o, d) = terrain_rays
+    B = ro.x.shape[0]
+    act = torch.tensor(np.random.default_rng(6).random(B) < 0.9,
                        device=ro.x.device)
-    packet.LAUNCHES["packet_traverse"] = 0
-    k = packet.packet_traverse(ts, ro, rd, EPS, W, active=act, with_attrs=True)
-    p = packet.packet_traverse_plain(ts, ro, rd, EPS, W, active=act,
-                                     with_attrs=True)
-    assert packet.LAUNCHES["packet_traverse"] == 1
-    assert bool((k[0] < dk.F32_MAX).any())
-    for a, b in zip(k, p):
-        assert torch.equal(a, b)
+    for (O, D), attrs in (((ro, rd), True), ((ro, rd), False), ((o, d), False)):
+        packet.LAUNCHES["packet_traverse"] = 0
+        k = packet.packet_traverse(ts, O, D, EPS, W, active=act, with_attrs=attrs)
+        p = packet.packet_traverse_plain(ts, O, D, EPS, W, active=act,
+                                         with_attrs=attrs)
+        assert packet.LAUNCHES["packet_traverse"] == 1
+        assert bool((k[0] < dk.F32_MAX).any()) and len(k) == (6 if attrs else 5)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+    for n in (B - 37, 1, 33):
+        O, D = V3(*(c[:n] for c in ro)), V3(*(c[:n] for c in rd))
+        k = packet.packet_traverse(ts, O, D, EPS, W, with_attrs=True)
+        p = packet.packet_traverse_plain(ts, O, D, EPS, W, with_attrs=True)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -196,15 +212,17 @@ def test_b5_b6_b7_kernels_match_plain_on_card(terrain_rays):
     stack = torch.zeros((S, Bp), dtype=torch.int32, device=dev)
     sp = (torch.arange(Bp, device=dev) < B).to(torch.int32)
     best_t = torch.full((Bp,), dk.F32_MAX, device=dev)
-    tab = ts.top_tab.float()
+    tab = ts.top_tab
     for rnd in range(2):
         # Both update their stack in place: each gets its own copy.
         k = bvh.top_traverse(tab, o, d, best_t, stack.clone(), sp, S=S, Q=Q,
                              n_sl=n_sl)
         p = bvh.top_traverse_plain(tab, o, d, best_t, stack.clone(), sp, S=S,
                                    Q=Q, n_sl=n_sl)
-        for a, b in zip(k, p):
-            assert torch.equal(a, b)
+        # Stacks compared below each lane's sp: the entries a later round
+        # reads (the kernel does not write entries pushed and popped within
+        # the round).
+        assert prof_top.max_abs_diff(k, p, S) == 0.0
         if rnd == 0:
             first = k
         stack, sp = k[2], k[3]
@@ -232,6 +250,56 @@ def test_b5_b6_b7_kernels_match_plain_on_card(terrain_rays):
     args, kw, _, _ = intersect._attr_fetch_args(ts, h)
     assert torch.equal(bvh.attr_fetch(*args, **kw),
                        bvh.attr_fetch_plain(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("copies", [1, 4], ids=["eight_lanes_per_ray", "one_lane_per_ray"])
+@pytest.mark.parametrize("hist", [True, False], ids=["histogram", "no_histogram"])
+@pytest.mark.parametrize("Q", [8, 32])
+def test_b5_resumed_rounds_match_plain_on_card(terrain_rays, Q, hist, copies):
+    """B5 over resumed rounds of the bounce batch until every stack drains,
+    each round against its plain version on the same inputs (stacks
+    compared below sp), the best t falling between rounds as the
+    wavefront's would: a first round of Q = 8, then rounds of Q, as the
+    wavefront's full-batch rounds hand their stragglers to rounds of
+    WF_Q_TAIL = 32; with the demand histogram (the terrain's superleaf
+    count) and without it (a count above HIST_MAX_SL). One copy of the
+    batch (10,240 lanes) takes the kernel's eight lanes per ray; four
+    copies are more rays than the card holds threads at eight lanes each
+    and take one lane per ray (csrc/bvh.cu)."""
+
+    ts, W, _, (o, d) = terrain_rays
+    o, d = V3(*(c.repeat(copies) for c in o)), V3(*(c.repeat(copies) for c in d))
+    dev = o.x.device
+    B = o.x.shape[0]
+    pad = (-B) % intersect.WF_RAY_BLOCK
+    t_hit = intersect.closest_hit(ts, o, d, EPS, W=W, coherent=False).dst
+    o = V3(*(intersect._pad(c, pad, 0.0) for c in o))
+    d = V3(intersect._pad(d.x, pad, 0.0), intersect._pad(d.y, pad, 1.0),
+           intersect._pad(d.z, pad, 0.0))
+    t_hit = intersect._pad(t_hit, pad, dk.F32_MAX)
+    Bp, S = B + pad, bvh.stack_depth(ts)
+    n_sl = ts.sl_count if hist else bvh.HIST_MAX_SL + 1
+    assert (bvh.hist_bins(n_sl) > 0) == hist
+    stack = torch.zeros((S, Bp), dtype=torch.int32, device=dev)
+    sp = (torch.arange(Bp, device=dev) < B).to(torch.int32)
+    best_t = torch.full((Bp,), dk.F32_MAX, device=dev)
+    rounds = 0
+    while bool((sp > 0).any()):
+        q = 8 if rounds == 0 else Q
+        k = bvh.top_traverse(ts.top_tab, o, d, best_t, stack.clone(), sp, S=S,
+                             Q=q, n_sl=n_sl)
+        p = bvh.top_traverse_plain(ts.top_tab, o, d, best_t, stack.clone(), sp,
+                                   S=S, Q=q, n_sl=n_sl)
+        # Stacks compared below each lane's sp: the entries a later round
+        # reads (the kernel does not write entries pushed and popped within
+        # the round).
+        assert prof_top.max_abs_diff(k, p, S) == 0.0
+        stack, sp = k[2], k[3]
+        # A lane's best t after the round's pairs: its hit once it emitted.
+        best_t = torch.where(k[1] > 0, torch.minimum(best_t, t_hit), best_t)
+        rounds += 1
+    assert rounds >= 2
 
 
 @pytest.mark.gpu
@@ -296,7 +364,7 @@ def field_rays():
     scene, cams = synthetic.build_scene_instanced_field(2_000, seed=0,
                                                         tris_per_mesh=64)
     ts = tl.build_scene_torch(scene, device=dev)
-    assert ts.two_level and packet.tables_resident(ts)
+    assert ts.two_level
     ro, rd = _camera_rays(cams, 128, 72, dev)
     W = intersect.scene_tri_matrix(ts)
     h, ia = intersect.closest_hit_attrs(ts, ro, rd, EPS, W=W)
@@ -306,17 +374,27 @@ def field_rays():
 
 @pytest.mark.gpu
 def test_b4_two_level_modes_match_plain_on_card(field_rays):
+    """B4's one two-level mode (each leaf's gsl_meta row, rays moved to mesh
+    space per owner lane) against its plain version on the camera rays and
+    the bounce batch, with inactive lanes and a batch that is not a
+    multiple of the packet; attributes are refused."""
+
     ts, W, (ro, rd), (o, d) = field_rays
-    for O, D in ((ro, rd), (o, d)):
-        packet.MODE_LAUNCHES.update(resident=0, stream=0)
-        res = packet.packet_traverse(ts, O, D, EPS, W, stream=False)
-        stm = packet.packet_traverse(ts, O, D, EPS, W, stream=True)
-        assert packet.MODE_LAUNCHES["resident"] == 1
-        assert packet.MODE_LAUNCHES["stream"] == 1
-        plain = packet.packet_traverse_plain(ts, O, D, EPS, W)
-        assert bool((res[0] < dk.F32_MAX).any())
-        for a, b, c in zip(res, stm, plain):
-            assert torch.equal(a, b) and torch.equal(a, c)
+    act = torch.tensor(np.random.default_rng(7).random(ro.x.shape[0]) < 0.8,
+                       device=ro.x.device)
+    for O, D, a in ((ro, rd, None), (o, d, None), (ro, rd, act)):
+        packet.LAUNCHES["packet_traverse"] = 0
+        k = packet.packet_traverse(ts, O, D, EPS, W, active=a)
+        assert packet.LAUNCHES["packet_traverse"] == 1
+        plain = packet.packet_traverse_plain(ts, O, D, EPS, W, active=a)
+        assert bool((k[0] < dk.F32_MAX).any())
+        for x, y in zip(k, plain):
+            assert torch.equal(x, y)
+    n = ro.x.shape[0] - 5
+    O, D = V3(*(c[:n] for c in ro)), V3(*(c[:n] for c in rd))
+    for x, y in zip(packet.packet_traverse(ts, O, D, EPS, W),
+                    packet.packet_traverse_plain(ts, O, D, EPS, W)):
+        assert torch.equal(x, y)
     with pytest.raises(ValueError, match="wavefront_fetch_attrs"):
         packet.packet_traverse(ts, ro, rd, EPS, W, with_attrs=True)
 

@@ -20,8 +20,24 @@ on the CPU.
 - B6's packed coefficient table (kernels/bvh.py::pair_table) and B3's
   packed tables (kernels/mega.py), unpacked back to the coefficient matrix
   and the light arrays, array-equal, and built once per scene.
+- The packed top rows of B4 and B5 (kernels/bvh.py::top_rows) decoded back
+  to the top table's boxes, slot markers and child references on a
+  terrain, an instanced field and the Cornell box above the dense gate,
+  and kept on the table.
+- B5's comparator network as the kernel runs it (csrc/bvh.cu: six layers
+  of disjoint compare-exchanges between the lanes of a ray) against the
+  19 comparators in their order (kernels/bvh.py::SORT_NET), on ties,
+  misses and random keys.
+- The edits the profiling tools make to copies of csrc/packet.cu,
+  csrc/bvh.cu and csrc/mega.cu (tools/prof_packet.py, tools/prof_top.py,
+  tools/prof_mega.py) each find their text in the sources once, and their
+  reading of ptxas's register and spill report.
+- The packet kernel's constants copied in kernels/packet.py equal
+  csrc/packet.cu's.
 
 Everything here is exact: no tolerance."""
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +50,9 @@ import lupinpathtracer_tpu_torch as tl
 from lupinpathtracer_tpu_torch.io import builtin, synthetic
 from lupinpathtracer_tpu_torch.kernels import bvh as tbvh
 from lupinpathtracer_tpu_torch.kernels import intersect as tint
-from lupinpathtracer_tpu_torch.kernels import mega
-from lupinpathtracer_tpu_torch.tools import prof_pair
+from lupinpathtracer_tpu_torch.kernels import cuda_build, mega
+from lupinpathtracer_tpu_torch.kernels import packet as tpacket
+from lupinpathtracer_tpu_torch.tools import prof_mega, prof_packet, prof_pair, prof_top
 
 PB = 256
 
@@ -287,3 +304,147 @@ def test_tables_built_once_per_scene(cornell):
     assert a[0] is b[0] and a[1] is b[1]
     other = tl.build_scene_torch(builtin.build_scene_cornell_box()[0], device="cpu")
     assert tint.scene_tri_matrix(other) is not W
+
+
+def _top_scenes():
+    terrain, _ = synthetic.build_scene_terrain(n_tris=20_000, seed=0)
+    field, _ = synthetic.build_scene_instanced_field(300, seed=0, tris_per_mesh=64)
+    box, _ = builtin.build_scene_cornell_box()
+    return {"terrain": tl.build_scene_torch(terrain, device="cpu"),
+            "field": tl.build_scene_torch(field, device="cpu"),
+            "cornell_above_gate": tl.build_scene_torch(box, device="cpu",
+                                                       dense_max_tris=16)}
+
+
+@pytest.fixture(scope="module")
+def top_scenes():
+    return _top_scenes()
+
+
+@pytest.mark.parametrize("name", ["terrain", "field", "cornell_above_gate"])
+def test_top_rows_decode_to_top_tab(top_scenes, name):
+    """geo (rows, 8, 8) holds each slot's lo, hi and marker as the table
+    stores them, then a zero; refs (rows, 8) the reference the three fields
+    H2, HI8, LO8 spell (decoded here in float64) shifted left by one, with
+    the leaf bit where the marker is 1."""
+
+    scene = top_scenes[name]
+    assert scene.use_bvh
+    tab = scene.top_tab.double().numpy().reshape(-1, 8, 10)
+    geo, refs = tbvh.top_rows(scene.top_tab)
+    assert geo.shape == (tab.shape[0], 8, 8) and geo.dtype == torch.float32
+    assert refs.shape == (tab.shape[0], 8) and refs.dtype == torch.int32
+    assert geo.is_contiguous() and refs.is_contiguous()
+    g = geo.double().numpy()
+    np.testing.assert_array_equal(g[:, :, 0:3], tab[:, :, 0:3])
+    np.testing.assert_array_equal(g[:, :, 3:6], tab[:, :, 3:6])
+    np.testing.assert_array_equal(g[:, :, 6], tab[:, :, 6])
+    assert not g[:, :, 7].any()
+    r = refs.numpy().astype(np.int64)
+    spelled = tab[:, :, 7] * 65536 + tab[:, :, 8] * 256 + tab[:, :, 9]
+    np.testing.assert_array_equal(r >> 1, spelled.astype(np.int64))
+    np.testing.assert_array_equal(r & 1, (tab[:, :, 6] == 1.0).astype(np.int64))
+    assert set(np.unique(tab[:, :, 6])) <= {-1.0, 0.0, 1.0}
+    if not scene.top_root_is_leaf:
+        leaf = tab[:, :, 6] == 1.0
+        assert leaf.any() and (r[leaf] >> 1).max() < scene.sl_count
+        assert (r[tab[:, :, 6] == 0.0] >> 1).max() < tab.shape[0]
+
+
+def test_top_rows_are_kept_on_the_table(top_scenes):
+    """The same tensors on every call for the scene's table (the wavefront
+    passes scene.top_tab to B5 each round, B4 reads them each launch); a
+    table written since gets new ones."""
+
+    scene = top_scenes["terrain"]
+    geo, refs = tbvh.top_rows(scene.top_tab)
+    again = tbvh.top_rows(scene.top_tab)
+    assert again[0] is geo and again[1] is refs
+    assert again[0].data_ptr() == geo.data_ptr()
+    tab = scene.top_tab.clone()
+    first = tbvh.top_rows(tab)
+    assert first[0] is not geo and torch.equal(first[0], geo)
+    tab[0, 0] = tab[0, 0] - 1.0
+    rebuilt = tbvh.top_rows(tab)
+    assert rebuilt[0] is not first[0]
+    assert float(rebuilt[0][0, 0, 0]) == float(tab[0, 0])
+
+
+def _network_layers(t, r):
+    """csrc/bvh.cu's six layers on (n, 8) keys and refs: lane c trades with
+    its partner p, the lower slot keeping the smaller key, swapping only on
+    a strict >."""
+
+    c = np.arange(8)
+    partners = [c ^ 1, c ^ 2, np.where(np.isin(c, [1, 2, 5, 6]), c ^ 3, c), c ^ 4,
+                np.where((c >= 2) & (c <= 5), c ^ 6, c),
+                np.where((c >= 1) & (c <= 6), ((c - 1) ^ 1) + 1, c)]
+    t, r = t.copy(), r.copy()
+    for p in partners:
+        tp, rp = t[:, p], r[:, p]
+        swap = np.where(c < p, t > tp, (c > p) & (tp > t))
+        t, r = np.where(swap, tp, t), np.where(swap, rp, r)
+    return t, r
+
+
+def test_b5_network_layers_equal_the_comparators():
+    rng = np.random.default_rng(5)
+    n = 20_000
+    t = rng.choice(np.float32([0.5, 1.0, 2.0, 3e38]), (n, 8))  # many ties
+    t[: n // 2] = rng.random((n // 2, 8)).astype(np.float32)
+    t[n // 4: n // 2, 2:6] = np.float32(3.4028235e38)  # misses
+    r = rng.integers(-700, 700, (n, 8))
+    lt, lr = _network_layers(t, r)
+    st, sr = t.copy(), r.copy()
+    for a, b in tbvh.SORT_NET:
+        swap = st[:, a] > st[:, b]
+        st[:, [a, b]] = np.where(swap[:, None], st[:, [b, a]], st[:, [a, b]])
+        sr[:, [a, b]] = np.where(swap[:, None], sr[:, [b, a]], sr[:, [a, b]])
+    np.testing.assert_array_equal(lt, st)
+    np.testing.assert_array_equal(lr, sr)
+    assert (np.diff(st, axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("name,variants", [("packet", prof_packet.VARIANTS),
+                                           ("bvh", prof_top.SHAPES),
+                                           ("mega", prof_mega.VARIANTS)])
+def test_profiling_copies_find_their_edits(name, variants):
+    with open(f"{cuda_build.CSRC}/{name}.cu") as f:
+        src = f.read()
+    for edits in variants.values():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new
+
+
+def test_packet_constants_are_the_kernel_source():
+    """The packet kernel's constants that the wrapper, the plain version's
+    union counts and the route's gate copy (kernels/packet.py) are those of
+    csrc/packet.cu; a packet is a warp (full-mask ballots of 32 lanes)."""
+
+    with open(f"{cuda_build.CSRC}/packet.cu") as f:
+        src = f.read()
+    const = {k: int(v, 0) for k, v in re.findall(
+        r"constexpr (?:int|unsigned) (\w+) = (\w+?)u?;", src)}
+    assert const["PK_STACK"] == tpacket.PACKET_STACK_MAX
+    assert const["PK_SPLIT"] == tpacket.PACKET_SPLIT
+    assert const["PK_SPLIT_CHUNK"] == tpacket.PACKET_SPLIT_CHUNK
+    assert bin(const["FULL"]).count("1") == tpacket.PACKET_LANES
+
+
+def test_ptxas_usage_reads_each_entry_function():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN4lupin1kILb1EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4lupin1kILb1EEEvv
+    16 bytes stack frame, 36 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 64 registers, 528 bytes cmem[0]
+ptxas info    : Function properties for _ZN4lupin6helperEv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Compiling entry function '_ZN4lupin1kILb0EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4lupin1kILb0EEEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 528 bytes cmem[0]
+"""
+    assert prof_pair.ptxas_usage(log) == {"_ZN4lupin1kILb1EEEvv": (64, 36),
+                                          "_ZN4lupin1kILb0EEEvv": (40, 0)}
+    mega_log = log.replace("1kILb", "11mega_kernelILb")
+    assert prof_mega.usage(mega_log) == {"smem": (64, 36), "global": (40, 0)}
