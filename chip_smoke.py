@@ -7,9 +7,12 @@ each against its plain PyTorch version on the card, and drives the port's
 main paths through its entry points:
 - dense route: the progressive Cornell-box render, 512x512, 8 bounces,
   64 spp per accumulation (kernel B3; its warp efficiency from n_traced),
-  the DIRECT wavefront (B2) and a closest-hit query (B1), and a 32x32
-  render against the repo's golden; B3 also against its plain version on
-  a box with a 520-triangle sphere (its triangle table read through L1);
+  the DIRECT wavefront (B2, every B2 launch of one accumulation replayed
+  against its plain version: tools/replay.py) and a closest-hit query
+  (B1), and a 32x32 render against the repo's golden; B3 also against its
+  plain version on a box with a 520-triangle sphere (its triangle table
+  read through L1), and B2 timed on that box too (556 triangles: bound by
+  operations where the Cornell box's B2 is bound by its stores);
 - BVH route: the 2M-triangle synthetic terrain (bench.py's terrain2M),
   512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 on camera rays,
   B5/B6/B7 on every bounce batch), B4-B7 against their plain versions at
@@ -24,8 +27,9 @@ main paths through its entry points:
   reference;
 - B5 on every B5 launch of one accumulation of each BVH main path,
   replayed on its recorded inputs against its plain version
-  (tools/prof_top.py), and B6 against V0 (B6's earlier design) the same
-  way (tools/prof_pair.py);
+  (tools/prof_top.py), B6 against V0 (B6's earlier design) the same
+  way (tools/prof_pair.py), and B7 against its plain version
+  (tools/replay.py);
 - B6 and the B6' ablation variants (tools/prof_pair.py of the port) in
   turns on the round-1 states of the terrain2M and instanced100k camera
   batches, with the share of B6's threads that hold a pair in each design.
@@ -33,8 +37,9 @@ Each phase prints one JSON line; any failure raises and exits nonzero. The
 kernels line holds each kernel's (and mode's) launches on its main path,
 its error against the plain version, its device time (torch.profiler) and
 the plain version's wall time (CUDA events) at the main path's shapes, and
-its bound on an H100 (FP32 67 TFLOP/s, HBM 3.35 TB/s); B5's are the means
-over its replayed main-path launches.
+its bound on an H100 (FP32 67 TFLOP/s, HBM 3.35 TB/s); B5's main-path
+entries, and the entries of B2 and B7 named "mean per main-path launch",
+are the means over the replayed launches.
 The last line is {"ok": true, "device": {...}}. Without a GPU it exits
 nonzero and prints no result. Imports nothing of JAX.
 """
@@ -64,6 +69,7 @@ SORT_OPS = 12  # B5 per child: 19 comparators x (1 compare + 4 selects) / 8
 XFORM_OPS = 33  # ray to mesh space: origin 9 products + 9 sums, direction 9 + 6
 LEAF_FRAME_OPS = XFORM_OPS + 9 + 3  # B4 per leaf visit: + o x d, 3 reciprocals
 ROTATE_OPS = 2 * 15 + 8  # B7 per winner: two rotations, gn's length and scale
+IA_ROWS, IA_ROWS_NM = 16, 24  # B7's output rows (kernels/bvh.py)
 
 
 def emit(phase: str, **kw):
@@ -251,6 +257,31 @@ def b5_bound(lanes, Q, aabb, pops, pushes, hist_len, rows_read):
                     + hist_len * 4 + rows_read * TOP_FAN * (8 + 1) * 4)
 
 
+def b2_bound(rays, tris, columns):
+    """B1/B2's bound: 81 operations per ray/triangle test; bytes: the rays'
+    feature rows in (40 B), the coefficient table (160 B a triangle) and the
+    attribute rows (columns x 4 B a triangle) read once, the hit records
+    (20 B) and the (columns, rays) attribute rows out (columns = 0: B1)."""
+
+    return bound_ms(rays * tris * PAIR_OPS,
+                    rays * 40 + tris * 160 + rays * 20 + (tris + rays) * columns * 4)
+
+
+def b7_bound(work, row_bytes):
+    """B7's bound for one launch (tools/replay.attr_work): per winner the
+    interpolation (11 sums of 5 operations) and, with the instance word,
+    the rotations; bytes: per winner the row's touched sectors and its li,
+    hu, hv, the (rows, positions) output written, the items read (blk, msl,
+    lo, hi and the instance word) and each distinct instance's normal
+    matrix and override."""
+
+    rows = IA_ROWS_NM if work["tangents"] else IA_ROWS
+    inst = work["instances"]
+    return bound_ms(work["winners"] * (11 * 5 + (ROTATE_OPS if inst else 0)),
+                    work["winners"] * (row_bytes + 12) + work["positions"] * rows * 4
+                    + work["items"] * (20 if inst else 16) + inst * 40)
+
+
 def b4_bound(work4, B, out_bytes, rows, sub_numel, extra_ops=0, extra_bytes=0):
     """B4's bound: the per-ray work whatever implements it, 81 operations
     per admitted ray/triangle test and 26 per box test; bytes: rays in,
@@ -291,31 +322,6 @@ def glossy_cornell(lt, builtin):
         mat_type=lt.MaterialType.GLTFPBR, roughness=0.4, metallic=0.6))
     scene.instances[5].mat_idx = pbr  # short box
     scene.instances[6].mat_idx = glossy  # tall box
-    return scene, cams
-
-
-def sphere_cornell(lt, builtin, n_lat=14, n_lon=20):
-    """The Cornell box with a UV sphere of (n_lat - 1) * n_lon * 2 = 520
-    triangles: 556 in all, a dense scene whose triangle table B3 reads
-    through L1 rather than from shared memory."""
-
-    scene, cams = builtin.build_scene_cornell_box()
-    lat = np.linspace(0.15, np.pi - 0.15, n_lat)
-    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
-    pts = np.asarray([[np.sin(a) * np.cos(b), np.cos(a), np.sin(a) * np.sin(b)]
-                      for a in lat for b in lon], np.float32)
-    idx = []
-    for i in range(n_lat - 1):
-        for j in range(n_lon):
-            a, b = i * n_lon + j, i * n_lon + (j + 1) % n_lon
-            c, d = (i + 1) * n_lon + j, (i + 1) * n_lon + (j + 1) % n_lon
-            idx += [[a, b, c], [b, d, c]]
-    mesh = scene.add_mesh(lt.MeshCPU(positions=pts, indices=np.asarray(idx, np.int32),
-                                     normals=pts.copy(), texcoords=None, colors=None))
-    frame = np.zeros((3, 4), np.float32)
-    frame[:, :3] = 0.25 * np.eye(3, dtype=np.float32)
-    frame[:, 3] = (0.3, 1.2, 0.2)
-    scene.instances.append(lt.InstanceCPU(frame=frame, mesh_idx=mesh, mat_idx=0))
     return scene, cams
 
 
@@ -382,7 +388,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.render.renderer import (
         _camera_args, _pixel_batch)
-    from lupinpathtracer_tpu_torch.tools import prof_top
+    from lupinpathtracer_tpu_torch.tools import prof_top, replay
 
     F32_MAX = dk.F32_MAX
 
@@ -503,8 +509,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     emit("b7_vs_plain", rays=B, hits=hits7, rows=k7.shape[0],
          rows_equal=bool(torch.equal(k7, p7)), max_abs_err=err7)
     assert torch.equal(k7, p7)
-    bnd_b7 = bound_ms(hits7 * 11 * 5, hits7 * (row_b + 12)
-                      + k7.numel() * 4 + int(args7[0].shape[0]) * 16)
+    bnd_b7 = b7_bound(replay.attr_work(args7, kw7), row_b)
 
     # -- 9. the BVH main path --------------------------------------------------
     counters = (bvh.LAUNCHES, packet.LAUNCHES, dk.LAUNCHES, mega.LAUNCHES,
@@ -548,6 +553,8 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     b5_replay = emit_b5_launches(ts, desc, width, height, spp, bounces,
                                  f"terrain{n_tris}", smi)
     emit_b6_launches(ts, desc, width, height, spp, bounces, f"terrain{n_tris}", smi)
+    b7_replay = emit_b7_launches(ts, desc, width, height, spp, bounces,
+                                 f"terrain{n_tris}", smi)
 
     # -- 10. the Cornell box on the BVH route (one superleaf: B6, B7) --------
     reset(*counters)
@@ -579,6 +586,9 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
               bnd_b6, by6),
         entry("B7 attr_fetch", "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
               launches["attr_fetch"], err7, t_b7, p_b7, bnd_b7, by7),
+        entry("B7 attr_fetch (mean per main-path launch)", "bvh.cu",
+              "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
+              launches["attr_fetch"], *b7_replay),
     ], (ts, ro, rd, W, eps)
 
 
@@ -599,6 +609,61 @@ def emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi):
                       round(r["b6_ms"], 4), round(r["v0_ms"], 4)] for r in runs])
 
 
+def replay_entry(runs, bnds, err=0.0):
+    """entry()'s last arguments from a replay's launches and their bounds:
+    the largest output difference (0 where the replay held each launch
+    equal), the means per launch of ms, plain ms and bound (by what bounds
+    the larger share of the sum), and timed_by."""
+
+    n = max(len(runs), 1)
+    by = max(("bytes", "operations"), key=lambda k: sum(b[0] for b in bnds if b[1] == k))
+    timed_by = sorted({r["timed_by"] for r in runs})
+    return (err, sum(r["ms"] for r in runs) / n, sum(r["plain_ms"] for r in runs) / n,
+            (sum(b[0] for b in bnds) / n, by),
+            timed_by[0] if timed_by == ["device_records"] else "events")
+
+
+def emit_b2_launches(scene, desc, smi, width=512, height=512, spp=16, bounces=8):
+    """B2 on every B2 launch of one accumulation of the Cornell DIRECT
+    wavefront (tools/replay.b2_launches), each equal to its plain version
+    on every output: the sums and per launch [rays, hits, ms, plain ms,
+    bound ms]. Returns replay_entry's values for the kernels line."""
+
+    from lupinpathtracer_tpu_torch.tools import replay
+
+    runs = replay.b2_launches(scene, desc, width, height, spp, bounces)
+    bnds = [b2_bound(r["rays"], r["tris"], r["columns"]) for r in runs]
+    emit("b2_main_path_launches", scene="cornell", integrator="DIRECT", card=smi,
+         launches=len(runs), all_outputs_equal=True,
+         ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
+         bound_ms=sum(b[0] for b in bnds), bound_by=sorted({b[1] for b in bnds}),
+         timed_by=sorted({r["timed_by"] for r in runs}),
+         per_launch=[[r["rays"], r["hits"], round(r["ms"], 5), round(r["plain_ms"], 2),
+                      round(b[0], 5)] for r, b in zip(runs, bnds)])
+    return replay_entry(runs, bnds)
+
+
+def emit_b7_launches(ts, desc, width, height, spp, bounces, tag, smi):
+    """B7 on every B7 launch of one main-path accumulation
+    (tools/replay.b7_launches), each equal to its plain version: the sums
+    and per launch [positions, winners, items, tiles, instances, ms, plain
+    ms, bound ms]. Returns replay_entry's values for the kernels line."""
+
+    from lupinpathtracer_tpu_torch.tools import replay
+
+    runs = replay.b7_launches(ts, desc, width, height, spp, bounces)
+    bnds = [b7_bound(r, attr_row_bytes(r["tangents"])) for r in runs]
+    emit("b7_main_path_launches", scene=tag, card=smi, launches=len(runs),
+         all_outputs_equal=True, ms=sum(r["ms"] for r in runs),
+         plain_ms=sum(r["plain_ms"] for r in runs), bound_ms=sum(b[0] for b in bnds),
+         bound_by=sorted({b[1] for b in bnds}),
+         timed_by=sorted({r["timed_by"] for r in runs}),
+         per_launch=[[r["positions"], r["winners"], r["items"], r["tiles"],
+                      r["instances"], round(r["ms"], 5), round(r["plain_ms"], 2),
+                      round(b[0], 6)] for r, b in zip(runs, bnds)])
+    return replay_entry(runs, bnds)
+
+
 def emit_b5_launches(ts, desc, width, height, spp, bounces, tag, smi):
     """B5 on every B5 launch of one main-path accumulation
     (tools/prof_top.main_path_launches), each equal to its plain version:
@@ -612,21 +677,17 @@ def emit_b5_launches(ts, desc, width, height, spp, bounces, tag, smi):
     runs = prof_top.main_path_launches(ts, desc, width, height, spp, bounces)
     bnds = [b5_bound(r["lanes"], r["Q"], r["aabb_tests"], r["pops"],
                      r["pushes"], r["hist_bins"], r["rows_read"]) for r in runs]
-    n = max(len(runs), 1)
-    timed_by = sorted({r["timed_by"] for r in runs})
     err = max((r["max_abs_err"] for r in runs), default=0.0)
-    res = dict(ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
-               bound_ms=sum(b[0] for b in bnds))
     emit("b5_main_path_launches", scene=tag, card=smi, launches=len(runs),
-         max_abs_err_stack_below_sp=err, **res,
-         bound_by=sorted({b[1] for b in bnds}), timed_by=timed_by,
+         max_abs_err_stack_below_sp=err, ms=sum(r["ms"] for r in runs),
+         plain_ms=sum(r["plain_ms"] for r in runs), bound_ms=sum(b[0] for b in bnds),
+         bound_by=sorted({b[1] for b in bnds}),
+         timed_by=sorted({r["timed_by"] for r in runs}),
          per_launch=[[r["lanes"], r["live"], r["Q"], r["pops"], r["pushes"],
                       r["emits"], r["rows_read"], round(r["ms"], 5),
                       round(r["plain_ms"], 2), round(b[0], 6)]
                      for r, b in zip(runs, bnds)])
-    by = max(("bytes", "operations"), key=lambda k: sum(b[0] for b in bnds if b[1] == k))
-    return (err, res["ms"] / n, res["plain_ms"] / n, (res["bound_ms"] / n, by),
-            timed_by[0] if timed_by == ["device_records"] else "events")
+    return replay_entry(runs, bnds, err)
 
 
 def entry(name, src, replaces, launches, err, ms, p_ms, bnd, timed_by,
@@ -657,7 +718,7 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     from lupinpathtracer_tpu_torch.core.vec3 import V3
     from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
-    from lupinpathtracer_tpu_torch.tools import prof_pair, prof_top
+    from lupinpathtracer_tpu_torch.tools import prof_pair, prof_top, replay
 
     F32_MAX = dk.F32_MAX
     SP, n_sl, n_inst = ts.sl_stride, ts.sl_count, ts.num_instances
@@ -758,10 +819,8 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     rows_equal = bool(torch.equal(rows7, p7))
     fetch_ms, ia7 = cuda_ms(lambda: intersect.wavefront_fetch_attrs(ts, h7), 3)
     hits7 = int(h7.hit.sum())
-    row_b = attr_row_bytes(bool(ts.any_normal_maps))
-    bnd7 = bound_ms(hits7 * (11 * 5 + ROTATE_OPS),
-                    hits7 * (row_b + 12) + rows7.numel() * 4
-                    + int(args7[0].shape[0]) * 20 + n_inst * 40)
+    bnd7 = b7_bound(replay.attr_work(args7, kw7),
+                    attr_row_bytes(bool(ts.any_normal_maps)))
     out["b7"] = (err7, t_b7, p_b7, bnd7, by7)
     gn2 = sum(c * c for c in ia7.gn)[h7.hit]
     emit("b7_two_level_vs_plain", scene=tag, hits=hits7,
@@ -880,6 +939,8 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
             meas["b5"] = emit_b5_launches(ts, desc, width, height, spp,
                                           bounces, tag, smi)
             emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi)
+            meas["b7_replay"] = emit_b7_launches(ts, desc, width, height, spp,
+                                                 bounces, tag, smi)
 
         kernels += [
             entry(f"B4 packet_traverse (two-level; {tag})",
@@ -896,6 +957,11 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                   "lupinpathtracer_tpu/kernels/pallas_bvh.py:896", launches["attr_fetch"],
                   *meas["b7"]),
         ]
+        if big:
+            kernels.append(entry(
+                f"B7 attr_fetch (instance word; {tag}; mean per main-path launch)",
+                "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
+                launches["attr_fetch"], *meas["b7_replay"]))
     return kernels, state
 
 
@@ -1013,6 +1079,7 @@ def main() -> int:
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.render.renderer import (
         _camera_args, _pixel_batch)
+    from lupinpathtracer_tpu_torch.tools import replay
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1064,12 +1131,13 @@ def main() -> int:
     torch.cuda.synchronize()
     res = compare_hits(k, p, dk.F32_MAX)
     b1_same = all(bool(torch.equal(a, b)) for a, b in zip(k1, k[:5]))
-    emit("b1_b2_vs_plain", tris=T, b1_equals_b2_hit=b1_same, **res)
+    emit("b1_b2_vs_plain", tris=T, b1_equals_b2_hit=b1_same, bit_for_bit=True, **res)
     assert b1_same
+    assert_equal(k, p, "B2")
 
     # -- 3. B3 against its plain version (the port's pathtrace_spp) ------------
     glossy_scene = lt.build_scene_torch(glossy_cornell(lt, builtin)[0], device=dev)
-    sphere_scene = lt.build_scene_torch(sphere_cornell(lt, builtin)[0], device=dev)
+    sphere_scene = lt.build_scene_torch(replay.sphere_cornell()[0], device=dev)
     assert not sphere_scene.use_bvh and sphere_scene.num_world_tris == 556
     gx64, gy64 = _pixel_batch(64, 64, 0, 0, dev)
     pix64 = gy64 * 64 + gx64
@@ -1127,8 +1195,10 @@ def main() -> int:
     assert np.isfinite(img_d).all() and img_d.mean() > 0
     emit("main_path_wavefront", scene="cornell", integrator="DIRECT", width=512,
          height=512, bounces=8, spp=16, accumulations=2, wall_s=wall_d,
-         rays=stats_d["rays"], mrays_per_s=stats_d["rays"] / wall_d / 1e6,
+         s_per_accumulation=wall_d / 2, rays=stats_d["rays"],
+         mrays_per_s=stats_d["rays"] / wall_d / 1e6,
          image_mean=float(img_d.mean()), launches=dict(dk.LAUNCHES), card=smi)
+    b2_replay = emit_b2_launches(scene, desc_d, smi)
 
     # Route 3 (the dense closest-hit query, intersect.closest_hit, on the
     # main path's 512x512 camera rays): B1.
@@ -1155,24 +1225,35 @@ def main() -> int:
     # The outputs of the timed runs are compared, so each kernel's error in
     # the kernels line comes from the shapes it is timed at.
     B = 512 * 512
-    R_main = R_cam  # the main path's 512x512 camera rays
-    # DIRECT traces 2 rays per lane: camera rays, then as many rays from
-    # inside the box.
-    o = rng.uniform([-0.9, 0.1, -0.9], [0.9, 1.9, 0.9], (B, 3))
-    d = rng.normal(size=(B, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    R_wf = torch.cat([R_cam, intersect.ray_features(
-        V3(*torch.tensor(o.T, dtype=torch.float32, device=dev)),
-        V3(*torch.tensor(d.T, dtype=torch.float32, device=dev)))])
+    # B1: the main path's 512x512 camera rays. B2: DIRECT traces 2 rays
+    # per lane, camera rays, then as many rays from inside the box
+    # (tools/replay.dense_timing_rays).
+    R_main, R_wf = replay.dense_timing_rays(cam, dev)
     t_b1, k, by1 = kernel_ms(lambda: dk.dense_closest_hit(W, R_main, eps),
                         "dense_hit_kernel", 20)
     p_b1, p = cuda_ms(lambda: dk.dense_closest_hit_plain(W, R_main, eps), 3)
     res_b1 = compare_hits(k, p, dk.F32_MAX)
+    assert_equal(k, p, "B1 at the timing shape")
     t_b2, k, by2 = kernel_ms(
         lambda: dk.dense_closest_hit_attrs(W, scene.wt_attr, R_wf, eps),
         "dense_hit_kernel", 20)
     p_b2, p = cuda_ms(lambda: dk.dense_closest_hit_attrs_plain(W, A, R_wf, eps), 3)
     res_b2 = compare_hits(k, p, dk.F32_MAX)
+    assert_equal(k, p, "B2 at the timing shape")
+    # B2 where operations bound it: the same rays against the box with a
+    # 520-triangle sphere (556 triangles, 139 groups: six shared-memory
+    # stages), near the top of the dense gate.
+    Ws = intersect.scene_tri_matrix(sphere_scene)
+    Ts = Ws.shape[2]
+    As = sphere_scene.wt_attr[:Ts]
+    before = dk.LAUNCHES["dense_closest_hit_attrs"]
+    t_b2s, k, by2s = kernel_ms(
+        lambda: dk.dense_closest_hit_attrs(Ws, sphere_scene.wt_attr, R_wf, eps),
+        "dense_hit_kernel", 10)
+    launches_b2s = dk.LAUNCHES["dense_closest_hit_attrs"] - before
+    p_b2s, p = plain_ms(lambda: dk.dense_closest_hit_attrs_plain(Ws, As, R_wf, eps))
+    res_b2s = compare_hits(k, p, dk.F32_MAX)
+    assert_equal(k, p, "B2 on the sphere box")
     pix = gy * 512 + gx
     b3_args = (pix, gx, gy, (512.0, 512.0), cam, False, 0, 0, 64,
                int(lt.PathtraceType.STANDARD), 8, 100.0)
@@ -1183,7 +1264,7 @@ def main() -> int:
     p_b3, (acc_p, nt_p) = cuda_ms(
         lambda: integrators.pathtrace_spp(scene, ctx, *b3_args), 1)
     res_b3 = compare_paths(acc_k, nt, acc_p, nt_p)
-    emit("kernels_vs_plain_main_shapes", b1=res_b1, b2=res_b2,
+    emit("kernels_vs_plain_main_shapes", b1=res_b1, b2=res_b2, b2_sphere=res_b2s,
          b3=dict(pixels=B, spp=64, bounces=8, max_radiance=100.0,
                  warp_efficiency=warp_efficiency(nt), **res_b3))
     segs = int(nt.sum())
@@ -1191,8 +1272,8 @@ def main() -> int:
     aw = scene.wt_attr.shape[1]
     bnd_b1 = bound_ms(B * T * PAIR_OPS, B * 40 + T * 160 + B * 20)
     Bw = R_wf.shape[0]
-    bnd_b2 = bound_ms(Bw * T * PAIR_OPS, Bw * 40 + T * 160 + Bw * 20
-                      + T * aw * 4 + Bw * aw * 4)
+    bnd_b2 = b2_bound(Bw, T, aw)
+    bnd_b2s = b2_bound(Bw, Ts, aw)
     # Per path segment: the closest hit plus the light pdf's per-triangle
     # ray/triangle test (~60 ops); shading and sampling are not counted, so
     # this bound is a lower one.
@@ -1204,11 +1285,21 @@ def main() -> int:
         entry("B2 dense_closest_hit_attrs", "dense_intersect.cu",
               "lupinpathtracer_tpu/kernels/pallas_intersect.py:298", launches_b2,
               res_b2["max_abs_err"], t_b2, p_b2, bnd_b2, by2),
+        entry("B2 dense_closest_hit_attrs (Cornell DIRECT, mean per main-path launch)",
+              "dense_intersect.cu", "lupinpathtracer_tpu/kernels/pallas_intersect.py:298",
+              launches_b2, *b2_replay),
+        entry(f"B2 dense_closest_hit_attrs (sphere box, {Ts} triangles)",
+              "dense_intersect.cu", "lupinpathtracer_tpu/kernels/pallas_intersect.py:298",
+              launches_b2s, res_b2s["max_abs_err"], t_b2s, p_b2s, bnd_b2s, by2s,
+              launches_in="sphere-box timing"),
         entry("B3 mega_pathtrace_spp", "mega.cu",
               "lupinpathtracer_tpu/kernels/pallas_mega.py:622", launches_b3,
               res_b3["acc_max_abs_err"], t_b3, p_b3, bnd_b3, by3),
     ]
-    emit("timing_shapes", b1_rays=B, b2_rays=Bw, tris=T, b3_pixels=B, b3_spp=64,
+    emit("timing_shapes", b1_rays=B, b2_rays=Bw, tris=T, b2_sphere_tris=Ts,
+         b1_smem_bytes=dk.smem_bytes(T, False), b2_smem_bytes=dk.smem_bytes(T, True),
+         threads_per_block=dk.THREADS, min_blocks_per_sm=dk.MIN_BLOCKS,
+         b3_pixels=B, b3_spp=64,
          b3_segments=segs, main_path_rays=rays_main, card=smi,
          total_s=time.perf_counter() - t_start)
 

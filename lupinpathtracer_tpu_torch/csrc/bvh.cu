@@ -43,19 +43,36 @@
 // thread per sorted position); pair_kernel.cuh keeps the earlier design (a
 // block per work item) as the baseline of the ablation in pair_variants.cu.
 //
-// B7. What bounds it: bytes (one 512-byte attribute row read and 64 or 96
-// bytes written per winner). Design: one block per work item, one thread
-// per covered lane, a direct load of the winner's row (the TPU's one-hot
-// gather) and the interpolation of _attr_kernel (pallas_bvh.py:750-786).
-// With an instance word per item (two-level scenes, pallas_bvh.py:788-825)
-// the row is rotated by the instance's normal matrix and takes its material
-// override (bvh_common.cuh::write_rows); without one the rows stay in mesh
+// B7. What bounds it: bytes, the 160 bytes of each winner's 512-byte
+// attribute row that write_rows reads (192 with tangents), its li, hu, hv,
+// and 64 or 96 bytes of rows written. The earlier design ran one block of
+// PB = 256 threads per work item over the static item cap n_pb + min(n_sl,
+// P) (kernels/intersect.py::_wf_work_items): ~100,600 blocks (25.7 million
+// threads) for 147,456 sorted positions on the 100k-instance field, whose
+// items cover ~2.5 positions each, and ~2,056 blocks for a straggler batch
+// of 2,048; nearly every thread exited at once, and each live one read ~40
+// scalar columns of its row. Now, as B6 does, a block takes a tile of
+// AT_TILE = 256 consecutive sorted positions, ceil(P / 256) tiles, one
+// thread per position: a tile past the last item's positions exits at
+// once, warp 0 brackets the tile's candidate items with the warp-wide
+// search of bvh_common.cuh (tile_items: n_items is read on the device, no
+// host sync), the block stages their covered spans in shared memory, and
+// each thread binary-searches them (covering). A position no item covers
+// (a miss, keyed n_sl and sorted last, or padding) keeps the caller's
+// zeros. The covered thread reads its row's touched 32-byte sectors as
+// 16-byte loads into registers (RowRegs; the table must be 16-byte
+// aligned) and runs the interpolation of _attr_kernel (pallas_bvh.py:
+// 750-786) in the plain version's order. With an instance word per item
+// (two-level scenes, pallas_bvh.py:788-825) the row is rotated by the
+// instance's normal matrix and takes its material override
+// (bvh_common.cuh::write_row_values); without one the rows stay in mesh
 // space and keep mat_id.
 //
 // Numerics match the plain PyTorch versions (kernels/bvh.py): built with
 // -fmad=false and no fast-math; min/max propagate NaN like jnp/torch.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "bvh_common.cuh"
 #include "pair_intersect.cuh"
@@ -65,6 +82,7 @@ namespace {
 using namespace lupin_bvh;
 
 constexpr int HIST_MAX = 4096;
+constexpr int AT_TILE = 256;  // B7: sorted positions per block
 constexpr int TOP_THREADS = 128;
 constexpr int TOP_RAYS = TOP_THREADS / TOP_FAN;  // rays per block
 
@@ -301,31 +319,58 @@ top_kernel_x1(const float4* __restrict__ geo, const int* __restrict__ refs,
     if (shist[i] != 0) atomicAdd(&hist[i], shist[i]);
 }
 
-__global__ void attr_kernel(const int* __restrict__ blk,
-                            const int* __restrict__ msl,
-                            const int* __restrict__ lo,
-                            const int* __restrict__ hi,
-                            const int* __restrict__ n_items,
-                            const int* __restrict__ li,
-                            const float* __restrict__ hu,
-                            const float* __restrict__ hv,
-                            const float* __restrict__ A,
-                            const int* __restrict__ inst,
-                            const float* __restrict__ nrm,
-                            const int* __restrict__ ovr, int SP, int aw,
-                            int PB, int P, int awout, float* __restrict__ out) {
-  const int k = blockIdx.x;
-  if (k >= *n_items) return;
-  const int pos = blk[k] * PB + threadIdx.x;
-  if (pos < lo[k] || pos >= hi[k] || pos >= P) return;
-  const float* a = A + ((size_t)msl[k] * SP + li[pos]) * aw;
+// B7: one thread per sorted position of a tile of AT_TILE.
+__global__ void __launch_bounds__(AT_TILE)
+attr_kernel(const int* __restrict__ blk, const int* __restrict__ msl,
+            const int* __restrict__ lo, const int* __restrict__ hi,
+            const int* __restrict__ n_items, const int* __restrict__ li,
+            const float* __restrict__ hu, const float* __restrict__ hv,
+            const float* __restrict__ A, const int* __restrict__ inst,
+            const float* __restrict__ nrm, const int* __restrict__ ovr, int SP,
+            int aw, int PB, int P, int awout, float* __restrict__ out) {
+  __shared__ int kbe[2];
+  __shared__ int item_c[AT_TILE];  // first covered position of each candidate
+  __shared__ int item_e[AT_TILE];  // one past its last
+  const int n = *n_items;
+  if (n <= 0) return;
+  const int p0 = blockIdx.x * AT_TILE;
+  // Positions past the last item's are covered by no item (uniform).
+  if (p0 >= max(cov_start(blk, lo, PB, n - 1), cov_end(blk, hi, PB, P, n - 1)))
+    return;
+  if (threadIdx.x < 32) {
+    int kb, ke;
+    tile_items(blk, lo, PB, n, p0, AT_TILE, kb, ke);
+    if (threadIdx.x == 0) {
+      kbe[0] = kb;
+      kbe[1] = ke;
+    }
+  }
+  __syncthreads();
+  const int kb = kbe[0], ke = kbe[1];
+  const int pos = p0 + threadIdx.x;
+  int item = -1;
+  for (int cb = kb; cb < ke; cb += AT_TILE) {
+    const int nc = min(AT_TILE, ke - cb);
+    if (cb > kb) __syncthreads();
+    if (threadIdx.x < nc) {
+      item_c[threadIdx.x] = cov_start(blk, lo, PB, cb + threadIdx.x);
+      item_e[threadIdx.x] = cov_end(blk, hi, PB, P, cb + threadIdx.x);
+    }
+    __syncthreads();
+    const int i = covering(item_c, item_e, nc, pos);
+    if (i >= 0) item = cb + i;
+  }
+  if (item < 0) return;
+  RowRegs row;
+  row.load(reinterpret_cast<const float4*>(A + ((size_t)msl[item] * SP + li[pos]) * aw),
+           awout >= 24);
   const float* nm = nullptr;
   int o = -1;
   if (inst != nullptr) {
-    nm = nrm + (size_t)inst[k] * 9;
-    o = ovr[inst[k]];
+    nm = nrm + (size_t)inst[item] * 9;
+    o = ovr[inst[item]];
   }
-  write_rows(a, hu[pos], hv[pos], awout, out + pos, (size_t)P, nm, o);
+  write_row_values(row, hu[pos], hv[pos], awout, out + pos, (size_t)P, nm, o);
 }
 
 }  // namespace
@@ -392,9 +437,11 @@ extern "C" int lupin_pair_intersect(const int* blk, const int* msl,
   return launch_pair_intersect(a, PairSplit{part, cnt, cap}, stream);
 }
 
-// Items as above; li/hu/hv (P,); A (n_msl, SP, aw); inst (n_cap,) with nrm
-// (n_inst, 9) and ovr (n_inst,), or all three null. out (awout, P), zeroed
-// by the caller.
+// Items as above; li/hu/hv (P,); A (n_msl, SP, aw), 16-byte aligned, aw a
+// multiple of 4 and at least 60; inst (n_cap,) with nrm (n_inst, 9) and ovr
+// (n_inst,), or all three null. out (awout, P), zeroed by the caller (the
+// positions no item covers keep it). One block per tile of AT_TILE sorted
+// positions; n_cap only tells an empty launch.
 extern "C" int lupin_attr_fetch(const int* blk, const int* msl, const int* lo,
                                 const int* hi, const int* n_items,
                                 const int* li, const float* hu,
@@ -403,11 +450,13 @@ extern "C" int lupin_attr_fetch(const int* blk, const int* msl, const int* lo,
                                 const int* ovr, int n_cap, int SP, int aw,
                                 int PB, int P, int awout, float* out,
                                 void* stream) {
-  if (PB < 1 || PB > 1024) return (int)cudaErrorInvalidValue;
+  if (PB < 1) return (int)cudaErrorInvalidValue;
   if ((inst == nullptr) != (nrm == nullptr) || (inst == nullptr) != (ovr == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (n_cap == 0) return (int)cudaGetLastError();
-  attr_kernel<<<n_cap, PB, 0, (cudaStream_t)stream>>>(
+  if ((((uintptr_t)A) & 15u) != 0 || aw % 4 != 0 || aw < 60)
+    return (int)cudaErrorInvalidValue;  // 16-byte row reads up to column 59
+  if (n_cap == 0 || P == 0) return (int)cudaGetLastError();
+  attr_kernel<<<(P + AT_TILE - 1) / AT_TILE, AT_TILE, 0, (cudaStream_t)stream>>>(
       blk, msl, lo, hi, n_items, li, hu, hv, A, inst, nrm, ovr, SP, aw, PB, P,
       awout, out);
   return (int)cudaGetLastError();

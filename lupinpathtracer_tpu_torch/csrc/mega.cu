@@ -31,13 +31,13 @@
 // - The triangle table is packed once per matrix (kernels/bvh.py
 //   pair_table, B6's layout) into groups of four triangles, (ceil(T/4),
 //   40, 4): one 16-byte load reads one coefficient of four triangles, 10
-//   loads per triangle, and the four are
-//   evaluated together (16 independent sums), then folded into the running
-//   minimum in index order. A block stages the table in shared memory when
-//   it is at most TRI_SMEM_TRIS triangles (the Cornell box: 36, 5.8 KB);
-//   above that every lane reads the same group at the same time through
-//   L1, which serves the broadcast (the gate admits 2,048 triangles,
-//   320 KB, more than a block can hold).
+//   loads per triangle, and the four are evaluated together (16
+//   independent sums), then folded into the running minimum in index
+//   order (the loop of dense_hit.cuh, shared with B1/B2). A block stages
+//   the table in shared memory when it is at most TRI_SMEM_TRIS triangles
+//   (the Cornell box: 36, 5.8 KB); above that every lane reads the same
+//   group at the same time through L1, which serves the broadcast (the
+//   gate admits 2,048 triangles, 320 KB, more than a block can hold).
 // - The light table (v0, area | e1 | e2 per light triangle, 48 bytes) is
 //   packed and staged the same way, for the light pdf's loop over every
 //   light triangle and for light sampling.
@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dense_hit.cuh"
 #include "tri_test.cuh"
 
 // Scalar arguments, mirrored by kernels/mega.py::_Params. Outside the
@@ -214,14 +215,8 @@ __device__ void camera_ray(const Params& p, int gx, int gy, uint32_t& s,
 // ---------------------------------------------------------- closest hit ----
 // kernels/dense_intersect.py (B2's arithmetic): R = [d, o x d, o, 1] dotted
 // with the coefficients in order k = 0..9, strict-< argmin, here over the
-// packed (Tg, 40, 4) groups; padding triangles are all zero and never
-// valid.
-
-template <bool SMEM>
-__device__ __forceinline__ float4 ld4(const float4* p) {
-  if constexpr (SMEM) return *p;
-  return __ldg(p);
-}
+// packed (Tg, 40, 4) groups by B1/B2's loop (dense_hit.cuh); padding
+// triangles are all zero and never valid.
 
 template <bool SMEM>
 __device__ __forceinline__ void closest_hit(const float4* __restrict__ Wg, int Tg, float eps,
@@ -229,47 +224,12 @@ __device__ __forceinline__ void closest_hit(const float4* __restrict__ Wg, int T
                             int& bidx) {
   const F3 c = cross(ro, rd);
   const float r[10] = {rd.x, rd.y, rd.z, c.x, c.y, c.z, ro.x, ro.y, ro.z, 1.0f};
-  const bool pre = eps > 0.0f;
+  float bdet = 0.0f;  // not read: ptxas drops it
   bt = F32_MAX;
   bu = 0.0f;
   bv = 0.0f;
   bidx = 0;
-  for (int g = 0; g < Tg; ++g) {
-    const float4* w = Wg + (size_t)g * 40;
-    float4 m4[4];
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const float4 x = ld4<SMEM>(w + cc * 10);
-      float4 acc = make_float4(r[0] * x.x, r[0] * x.y, r[0] * x.z, r[0] * x.w);
-#pragma unroll
-      for (int k = 1; k < 10; ++k) {
-        const float4 y = ld4<SMEM>(w + cc * 10 + k);
-        acc.x = acc.x + r[k] * y.x;
-        acc.y = acc.y + r[k] * y.y;
-        acc.z = acc.z + r[k] * y.z;
-        acc.w = acc.w + r[k] * y.w;
-      }
-      m4[cc] = acc;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float det = lupin_tri::lane_of(m4[0], k), nu = lupin_tri::lane_of(m4[1], k);
-      const float nv = lupin_tri::lane_of(m4[2], k), nt = lupin_tri::lane_of(m4[3], k);
-      if (pre && lupin_tri::surely_invalid(det, nu, nv, nt)) continue;
-      const float d = 1.0f / det;
-      const float t = nt * d;
-      const float u = nu * d;
-      const float v = nv * d;
-      const bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= eps);
-      const float tt = valid ? t : F32_MAX;
-      if (tt < bt) {
-        bt = tt;
-        bu = u;
-        bv = v;
-        bidx = 4 * g + k;
-      }
-    }
-  }
+  lupin_dense::fold_groups<SMEM>(Wg, 0, Tg, r, eps, eps > 0.0f, bt, bu, bv, bdet, bidx);
 }
 
 // ------------------------------------------------------------- material ----

@@ -115,36 +115,6 @@ struct PairTile {
   int dm[PI_DENSE_MAX];    // staged group -> mesh superleaf
 };
 
-// Positions item k covers: [cov_start, cov_end), empty when lo >= hi.
-__device__ __forceinline__ int cov_start(const PairArgs& a, int k) {
-  return max(a.lo[k], a.blk[k] * a.PB);
-}
-__device__ __forceinline__ int cov_end(const PairArgs& a, int k) {
-  return min(min(a.hi[k], a.blk[k] * a.PB + a.PB), a.P);
-}
-
-// First k in [lo_k, hi_k) with cov_start(k) > x, hi_k if none: each round
-// the 32 lanes probe evenly spaced items and keep the bracket between the
-// last probe at or below x and the first above it. Called by a whole warp;
-// every lane returns the same value.
-__device__ int warp_upper_bound(const PairArgs& a, int lo_k, int hi_k, int x) {
-  const int lane = threadIdx.x & 31;
-  while (lo_k < hi_k) {
-    const long long len = hi_k - lo_k;
-    const int k = lo_k + (int)(len * lane / 32);
-    const unsigned m = __ballot_sync(0xffffffffu, cov_start(a, k) > x);
-    if (m == 0u) {
-      lo_k += (int)(len * 31 / 32) + 1;
-      continue;
-    }
-    const int f = __ffs(m) - 1;
-    const int kf = lo_k + (int)(len * f / 32);
-    if (f > 0) lo_k += (int)(len * (f - 1) / 32) + 1;
-    hi_k = kf;
-  }
-  return lo_k;
-}
-
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
@@ -175,7 +145,8 @@ pair_hit_kernel(const PairArgs a, const PairSplit sp) {
   const int n = *a.n_items;
   if (n <= 0) return;
   // Positions past the last item's are covered by no item.
-  const int end = max(cov_start(a, n - 1), cov_end(a, n - 1));
+  const int end = max(cov_start(a.blk, a.lo, a.PB, n - 1),
+                      cov_end(a.blk, a.hi, a.PB, a.P, n - 1));
   const bool pre = a.eps > 0.0f;
   // Too few tiles to fill the card (a late round's few thousand pairs): each
   // tile's triangles are split into KS chunks of KC, one unit each, and the
@@ -194,16 +165,8 @@ pair_hit_kernel(const PairArgs a, const PairSplit sp) {
     const int pos = p0 + tid;
     __syncthreads();  // the previous tile is done with s
     if (tid < 32) {
-      // Candidates: from the first item starting where the last item that
-      // starts at or before p0 starts, to the first starting at p0 + 256.
-      const int u = warp_upper_bound(a, 0, n, p0);
-      int kb = 0;
-      if (u > 0) {
-        const int v = cov_start(a, u - 1);
-        kb = (u > 1 && cov_start(a, u - 2) < v) ? u - 1
-                                                 : warp_upper_bound(a, 0, u, v - 1);
-      }
-      const int ke = warp_upper_bound(a, kb, n, p0 + PI_THREADS - 1);
+      int kb, ke;  // the tile's candidate items
+      tile_items(a.blk, a.lo, a.PB, n, p0, PI_THREADS, kb, ke);
       if (tid == 0) {
         s.kb = kb;
         s.ke = ke;
@@ -225,18 +188,12 @@ pair_hit_kernel(const PairArgs a, const PairSplit sp) {
       const int nc = min(PI_THREADS, ke - cb);
       if (cb > kb) __syncthreads();
       if (tid < nc) {
-        s.item_c[tid] = cov_start(a, cb + tid);
-        s.item_e[tid] = cov_end(a, cb + tid);
+        s.item_c[tid] = cov_start(a.blk, a.lo, a.PB, cb + tid);
+        s.item_e[tid] = cov_end(a.blk, a.hi, a.PB, a.P, cb + tid);
       }
       __syncthreads();
-      int l = 0, h = nc;  // first index with start > pos
-      while (l < h) {
-        const int mid = (l + h) >> 1;
-        if (s.item_c[mid] > pos) h = mid; else l = mid + 1;
-      }
-      int i = l - 1;
-      while (i > 0 && s.item_c[i - 1] == s.item_c[i] && s.item_e[i] <= s.item_c[i]) --i;
-      if (i >= 0 && pos < s.item_e[i]) item = cb + i;
+      const int i = covering(s.item_c, s.item_e, nc, pos);
+      if (i >= 0) item = cb + i;
     }
 
     // Count the block's threads per mesh superleaf (one hash insert per

@@ -23,7 +23,9 @@ The counterpart of lupinpathtracer_tpu/kernels/pallas_bvh.py:
 - B7 `attr_fetch` (`_attr_kernel`, :896): the winner's attribute row,
   interpolated at the hit barycentrics into the compact IA_* rows; with an
   instance word per item, rotated by the instance's normal matrix and given
-  its material override.
+  its material override. The kernel (csrc/bvh.cu) runs one thread per
+  sorted position in tiles of ATTR_TILE, finds the covering item with B6's
+  lookup and reads the row's touched sectors as 16-byte loads.
 
 The orchestration (rounds, sorts, work items, per-ray min) lives in
 kernels/intersect.py. On a CUDA tensor each wrapper launches its kernel from
@@ -103,6 +105,8 @@ LAUNCHES = {"top_traverse": 0, "pair_intersect": 0, "attr_fetch": 0,
 # a launch of fewer tiles splits each tile's triangles to fill the card.
 PAIR_TILE = 256
 PAIR_SPLIT_UNITS = 4096
+# Sorted positions per block of B7's kernel (csrc/bvh.cu AT_TILE).
+ATTR_TILE = 256
 PAIR_SPLIT_MIN = 64
 
 # Ray-triangle pairs per chunk of B6's plain version: bounds its (lanes, SP)
@@ -767,16 +771,36 @@ def attr_fetch(blk, sl, lo, hi, li, hu, hv, A3, *, pair_block=256,
 
     from . import cuda_build
 
-    fn = cuda_build.load("bvh").lupin_attr_fetch
+    out = _attr_launch(cuda_build.load("bvh"), blk, sl, lo, hi, li, hu, hv, A3,
+                       pair_block=pair_block, with_tangents=with_tangents,
+                       n_items=n_items, inst=inst, nrm_tab=nrm_tab,
+                       ovr_tab=ovr_tab)
+    LAUNCHES["attr_fetch"] += 1
+    return out
+
+
+def _attr_launch(lib, blk, sl, lo, hi, li, hu, hv, A3, *, pair_block,
+                 with_tangents, n_items, inst, nrm_tab, ovr_tab):
+    """B7's kernel from the loaded library `lib` (the checkout's build of
+    csrc/bvh.cu, or a build of an earlier design: tools/replay.py), on
+    checked arguments; n_items a one-element device tensor."""
+
+    from . import cuda_build
+
+    A3 = A3.contiguous()
+    if A3.data_ptr() % 16 or A3.shape[2] % 4 or A3.shape[2] <= dk.ATTR_MAT_ID:
+        raise ValueError("B7 reads attribute rows as 16-byte loads up to "
+                         "ATTR_MAT_ID: A3 must be 16-byte aligned with a row "
+                         f"width divisible by 4, got {tuple(A3.shape)}")
+    fn = lib.lupin_attr_fetch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     dev = li.device
     P = li.shape[0]
     awout = IA_ROWS_NM if with_tangents else IA_ROWS
     out = torch.zeros((awout, P), dtype=torch.float32, device=dev)
-    A3 = A3.contiguous()
     ins = [x.contiguous() for x in (blk, sl, lo, hi, n_items, li, hu, hv)]
-    tabs = ([x.contiguous() for x in (inst, nrm_tab, ovr_tab)] if has_inst
+    tabs = ([x.contiguous() for x in (inst, nrm_tab, ovr_tab)] if inst is not None
             else [None] * 3)
     with torch.cuda.device(dev):
         rc = fn(*(x.data_ptr() for x in ins), A3.data_ptr(),
@@ -784,5 +808,4 @@ def attr_fetch(blk, sl, lo, hi, li, hu, hv, A3, *, pair_block=256,
                 blk.shape[0], A3.shape[1], A3.shape[2], pair_block, P, awout,
                 out.data_ptr(), _stream(dev))
     cuda_build.check(rc, "attr_fetch")
-    LAUNCHES["attr_fetch"] += 1
     return out

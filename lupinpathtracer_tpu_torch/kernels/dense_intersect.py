@@ -9,10 +9,14 @@ B2 the winner's packed attribute row, transposed to (ATTR_WIDTH, B) as in
 the JAX package (zeros on a miss).
 
 On a CUDA tensor each wrapper launches its kernel from csrc/dense_intersect.cu
-(one thread per ray, sequential f32 dot products, strict-< running argmin,
-attribute row fetched once after the loop) or raises. On a CPU tensor it
-runs the plain PyTorch version below, which performs the same arithmetic in
-the same order.
+or raises. The kernel runs one thread per ray over the packed coefficient
+groups of `bvh.pair_table` (four triangles per 16-byte load, staged in
+shared memory STAGE_GROUPS groups at a time, strict-< running argmin in
+index order, the sign pre-test before the divide where eps > 0); B2's
+warps then transpose their 32 winners' rows through shared-memory tiles of
+TILE_W columns into coalesced stores. On a CPU tensor it runs the plain
+PyTorch version below, which performs the same arithmetic in the same
+order.
 """
 
 from __future__ import annotations
@@ -60,6 +64,14 @@ ATTR_WIDTH = 128  # padded to a lane multiple in the JAX layout
 # Kernel launches per wrapper (counted only where a kernel is launched).
 LAUNCHES = {"dense_closest_hit": 0, "dense_closest_hit_attrs": 0}
 
+# The kernel's launch shape (csrc/dense_intersect.cu, whose constants these
+# copy): threads per block, blocks per SM it is built for, groups of four
+# triangles per shared-memory stage, attribute columns per tile chunk.
+THREADS = 128
+MIN_BLOCKS = 8
+STAGE_GROUPS = 26
+TILE_W = 32
+
 # Rays per chunk of the plain version: bounds its (chunk, T) temporaries.
 _PLAIN_PAIRS = 1 << 22
 
@@ -101,7 +113,7 @@ def dense_closest_hit_plain(W4, R, eps):
     B, T = R.shape[0], W4.shape[2]
     chunk = max(1, _PLAIN_PAIRS // max(T, 1))
     outs = []
-    for s in range(0, B, chunk):
+    for s in range(0, max(B, 1), chunk):  # an empty batch: one empty chunk
         Rc = R[s : s + chunk]
         det, nu, nv, nt = dense_numerators(Rc, W4)
         tt, u, v = dense_epilogue(det, nu, nv, nt, eps)
@@ -146,17 +158,30 @@ def _check(W4, R, A=None):
         raise ValueError(f"A must be (>=T, AW), got {tuple(A.shape)}")
 
 
-def _launch(W4, R, eps, A=None):
+def smem_bytes(T: int, attrs: bool) -> int:
+    """Dynamic shared memory of one block (csrc/dense_intersect.cu
+    smem_bytes): a stage of min(ceil(T / 4), STAGE_GROUPS) groups of 640
+    bytes, which B2's four warps reuse as their 32 x (TILE_W + 1) tiles."""
+
+    stage = 640 * min(-(-T // 4), STAGE_GROUPS)
+    tiles = 4 * (THREADS // 32) * 32 * (TILE_W + 1) if attrs else 0
+    return max(stage, tiles)
+
+
+def _launch(lib, table, R, eps, T, A=None):
+    """One launch of `lupin_dense_closest_hit` from the loaded library `lib`
+    on the coefficient table `table` (pair_table(W4) for this checkout's
+    kernel; a build of an earlier design takes what it reads, as
+    tools/replay.py passes it). Returns (t, u, v, det, idx, attr or None)."""
+
     from . import cuda_build
 
-    lib = cuda_build.load("dense_intersect")
     fn = lib.lupin_dense_closest_hit
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_float] + [ctypes.c_void_p] * 7
-    W4 = W4.contiguous()
     R = R.contiguous()
-    B, T = R.shape[0], W4.shape[2]
+    B = R.shape[0]
     dev = R.device
     t, u, v, det = (torch.empty(B, dtype=torch.float32, device=dev)
                     for _ in range(4))
@@ -164,18 +189,28 @@ def _launch(W4, R, eps, A=None):
     if A is not None:
         A = A.contiguous()
         aw = A.shape[1]
+        if aw % 4 or A.data_ptr() % 16:
+            raise ValueError("B2 reads attribute rows as 16-byte loads: A must "
+                             f"be 16-byte aligned with a width divisible by 4, got {aw}")
         attr = torch.empty((aw, B), dtype=torch.float32, device=dev)
         a_ptr, attr_ptr = A.data_ptr(), attr.data_ptr()
     else:
         aw, attr, a_ptr, attr_ptr = 0, None, None, None
-    if B > 0:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(R.data_ptr(), W4.data_ptr(), a_ptr, B, T, aw, aw,
-                    float(eps), t.data_ptr(), u.data_ptr(), v.data_ptr(),
-                    det.data_ptr(), idx.data_ptr(), attr_ptr, stream)
-        cuda_build.check(rc, "dense_closest_hit")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(R.data_ptr(), table.data_ptr(), a_ptr, B, T, aw, aw, float(eps),
+                t.data_ptr(), u.data_ptr(), v.data_ptr(), det.data_ptr(),
+                idx.data_ptr(), attr_ptr, stream)
+    cuda_build.check(rc, "dense_closest_hit")
     return t, u, v, det, idx, attr
+
+
+def _kernel(W4, R, eps, A=None):
+    from . import cuda_build
+    from .bvh import pair_table
+
+    return _launch(cuda_build.load("dense_intersect"), pair_table(W4), R, eps,
+                   W4.shape[2], A)
 
 
 def dense_closest_hit(W4, R, eps):
@@ -184,7 +219,7 @@ def dense_closest_hit(W4, R, eps):
     _check(W4, R)
     if on_cpu(R):
         return dense_closest_hit_plain(W4, R, eps)
-    out = _launch(W4, R, eps)
+    out = _kernel(W4, R, eps)
     LAUNCHES["dense_closest_hit"] += 1
     return out[:5]
 
@@ -197,6 +232,6 @@ def dense_closest_hit_attrs(W4, A, R, eps):
     A = A[: W4.shape[2]]
     if on_cpu(R):
         return dense_closest_hit_attrs_plain(W4, A, R, eps)
-    out = _launch(W4, R, eps, A)
+    out = _kernel(W4, R, eps, A)
     LAUNCHES["dense_closest_hit_attrs"] += 1
     return out

@@ -156,14 +156,16 @@ def kernel_ms_each(calls, kernel: str, reps: int, group: int = 8):
     return out
 
 
-def build_copies(name: str, variants: dict) -> dict:
-    """{key: (loaded library, ptxas output)}: copies of csrc/<name>.cu, each
-    with its variant's (old, new) text replacements (each old text must
-    occur once), compiled into the build directory as lib <name>_<key>.so
-    with the port's flags and -Xptxas -v, all nvcc processes at once. The
-    profiling tools' copies of a kernel with one choice changed."""
+def build_copies(name: str, variants: dict, csrc: str = cuda_build.CSRC) -> dict:
+    """{key: (loaded library, ptxas output)}: copies of <csrc>/<name>.cu
+    (this checkout's sources unless `csrc` names another's), each with its
+    variant's (old, new) text replacements (each old text must occur once),
+    compiled into the build directory as <name>_<key>.so with the port's
+    flags, -Xptxas -v and <csrc> on the include path, all nvcc processes at
+    once. The profiling tools' copies of a kernel with one choice changed,
+    and tools/replay.py's builds of an earlier design."""
 
-    src = open(os.path.join(cuda_build.CSRC, f"{name}.cu")).read()
+    src = open(os.path.join(csrc, f"{name}.cu")).read()
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for key, edits in variants.items():
@@ -177,7 +179,7 @@ def build_copies(name: str, variants: dict) -> dict:
             f.write(text)
         lib = path[:-3] + ".so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-               "-I", cuda_build.CSRC, "-o", lib, path]
+               "-I", csrc, "-o", lib, path]
         procs[key] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -278,25 +280,12 @@ def main_path_launches(scene, desc, width: int, height: int, spp: int,
     launches in a few profiler windows per kernel), which must agree bit
     for bit. Needs a CUDA GPU."""
 
-    from .. import BakedPathtraceParams, render_progressive
+    from .replay import one_accumulation, record_launches
 
-    rec = []
+    rec = record_launches(bvh, "pair_intersect",
+                          one_accumulation(scene, desc, width, height, spp, bounces),
+                          share=(6, "txf_tab"))
     real = bvh.pair_intersect
-
-    def record(*a, **k):
-        rec.append(([V3(*(c.clone() for c in x)) if isinstance(x, V3)
-                     else x.clone() if i < 4 else x for i, x in enumerate(a)],
-                    {key: v.clone() if torch.is_tensor(v) else v
-                     for key, v in k.items()}))
-        return real(*a, **k)
-
-    bvh.pair_intersect = record
-    try:
-        render_progressive(scene, desc, BakedPathtraceParams(
-            max_bounces=bounces, samples_per_pixel=spp), width, height, 1,
-            device=scene.wt_attr.device)
-    finally:
-        bvh.pair_intersect = real
     b6 = kernel_ms_each([lambda a=a, k=k: real(*a, **k) for a, k in rec],
                         "pair_hit_kernel", reps)
     v0 = kernel_ms_each([lambda a=a, k=k: bvh.pair_intersect_variant("V0", *a, **k)

@@ -27,9 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vec3 import V3
 from ..kernels import bvh
 from .prof_pair import kernel_ms_each
+from .replay import one_accumulation
+from .replay import record_launches as record_launches_of
 
 
 def max_abs_diff(k, p, S: int) -> float:
@@ -53,26 +54,12 @@ def record_launches(scene, desc, width: int, height: int, spp: int,
                     bounces: int) -> list:
     """[(tab, ro, rd, best_t, stack, sp, keywords)] of every B5 launch of one
     accumulation of the main path, each with copies of its inputs (the
-    kernel updates its stack in place)."""
+    kernel updates its stack in place; tools/replay.record_launches)."""
 
-    from .. import BakedPathtraceParams, render_progressive
-
-    rec = []
-    real = bvh.top_traverse
-
-    def record(tab, ro, rd, best_t, stack, sp, **kw):
-        rec.append((tab, V3(*(c.clone() for c in ro)), V3(*(c.clone() for c in rd)),
-                    best_t.clone(), stack.clone(), sp.clone(), dict(kw)))
-        return real(tab, ro, rd, best_t, stack, sp, **kw)
-
-    bvh.top_traverse = record
-    try:
-        render_progressive(scene, desc, BakedPathtraceParams(
-            max_bounces=bounces, samples_per_pixel=spp), width, height, 1,
-            device=scene.wt_attr.device)
-    finally:
-        bvh.top_traverse = real
-    return rec
+    rec = record_launches_of(bvh, "top_traverse",
+                             one_accumulation(scene, desc, width, height, spp, bounces),
+                             share=(0,))
+    return [(*a, k) for a, k in rec]
 
 
 def main_path_launches(scene, desc, width: int, height: int, spp: int,

@@ -24,7 +24,12 @@ and B7 with the instance word and without it (rays moved to mesh space,
 rows rotated, in PyTorch), and the B6' variants equal their plain versions
 exactly (V1/V3 select with rsqrt: the
 winner may differ on <= 1e-4 of hit lanes), and both routes are held to
-closest_hit_brute_two_level."""
+closest_hit_brute_two_level. B1/B2 are also held on random soups of 36, 37,
+556 and 2,047 triangles at batches of 0, 1, 31, 33 and 4,097 rays (with
+and without the sign pre-test) and on all-miss batches, and B7 on
+synthetic batches of 2,048 and 147,456 sorted positions (long segments;
+~2 winners per superleaf), one item and no winner, with and without the
+instance word and the tangent rows."""
 
 import numpy as np
 import pytest
@@ -533,3 +538,130 @@ def test_pair_variants_match_plain_on_card(scene_name, request):
     # An all-empty grid leaves the prefilled miss in place.
     e = prof_pair.run_variant("GRID", args, W, EPS, kw)
     assert bool((e[0] == dk.F32_MAX).all()) and not bool(e[4].any())
+
+
+def _dense_soup(T, seed, dev):
+    """T random triangles in [-1, 1]^3 and their (T + 3, 128) attribute rows
+    (three slack rows past T, as flatten pads the soup)."""
+
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-1.0, 1.0, (3, T))
+    e1, e2 = rng.normal(0.0, 0.4, (2, 3, T))
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    return (intersect.build_tri_matrix(t(v0), t(e1), t(e2)),
+            t(rng.normal(size=(T + 3, dk.ATTR_WIDTH))))
+
+
+def _dense_rays(B, seed, dev, miss=False):
+    """B rays from [-1.5, 1.5]^3 in random directions; with `miss`, rays
+    from z = 10 pointing away from every triangle."""
+
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.5, 1.5, (3, B))
+    d = rng.normal(size=(3, B))
+    if miss:
+        o[2] = 10.0
+        d[2] = np.abs(d[2]) + 0.1
+    d /= np.linalg.norm(d, axis=0)
+    return intersect.ray_features(
+        V3(*(torch.tensor(c, dtype=torch.float32, device=dev) for c in o)),
+        V3(*(torch.tensor(c, dtype=torch.float32, device=dev) for c in d)))
+
+
+def _b1_b2_equal(W, A, R, eps):
+    """B2 and B1 against their plain versions, every output equal; returns
+    the hit count."""
+
+    k = dk.dense_closest_hit_attrs(W, A, R, eps)
+    p = dk.dense_closest_hit_attrs_plain(W, A[: W.shape[2]], R, eps)
+    assert len(k) == len(p) == 6 and k[5].shape == (dk.ATTR_WIDTH, R.shape[0])
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and torch.equal(a, b)
+    for a, b in zip(dk.dense_closest_hit(W, R, eps), k[:5]):
+        assert torch.equal(a, b)
+    return int((k[0] < dk.F32_MAX).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eps", [EPS, 0.0], ids=["pretest", "eps0"])
+@pytest.mark.parametrize("B", [0, 1, 31, 33, 4097])
+@pytest.mark.parametrize("T", [36, 37, 556, 2047])
+def test_b1_b2_match_plain_at_every_size_on_card(cuda_device, T, B, eps):
+    """B1/B2 on random soups from the Cornell box's size to the dense gate's
+    top (T not a multiple of 4: padded groups; above STAGE_GROUPS groups:
+    several stages), batches that leave a warp or a block ragged, and eps = 0
+    (no sign pre-test)."""
+
+    W, A = _dense_soup(T, T, cuda_device)
+    hits = _b1_b2_equal(W, A, _dense_rays(B, B + 1, cuda_device), eps)
+    assert B < 31 or hits > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [36, 37, 556, 2047])
+def test_b1_b2_all_miss_batch_on_card(cuda_device, T):
+    W, A = _dense_soup(T, T, cuda_device)
+    assert _b1_b2_equal(W, A, _dense_rays(4097, 2, cuda_device, miss=True), EPS) == 0
+
+
+def _attr_case(P_real, n_sl, n_msl, SP, hits, two_level, tangents, dev,
+               one_key=False, seed=0):
+    """B7's arguments for P_real sorted positions (padded to the pair block)
+    of which `hits` are winners, spread over n_sl superleaves (sorted,
+    misses keyed n_sl), items from _wf_work_items; each item's mesh
+    superleaf is its superleaf modulo n_msl, and with `two_level` its
+    instance its superleaf modulo 97, with random normal matrices and
+    material overrides (-1: none)."""
+
+    rng = np.random.default_rng(seed)
+    PB = intersect.WF_PAIR_BLOCK
+    P = -(-P_real // PB) * PB
+    key = np.full(P, n_sl, np.int32)
+    key[:hits] = 3 if one_key else np.sort(rng.integers(0, n_sl, hits))
+    blk, sl_k, lo, hi, _, n_items = intersect._wf_work_items(
+        torch.tensor(key, device=dev), n_sl, PB)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    li = torch.tensor(np.where(key < n_sl, rng.integers(0, SP, P), 0),
+                      dtype=torch.int32, device=dev)
+    hu, hv = f32(rng.random((2, P)) * 0.5)
+    A3 = f32(rng.normal(size=(n_msl, SP, dk.ATTR_WIDTH)))
+    kw = dict(pair_block=PB, with_tangents=tangents, n_items=n_items, inst=None,
+              nrm_tab=None, ovr_tab=None)
+    if two_level:
+        kw.update(inst=sl_k % 97, nrm_tab=f32(rng.normal(size=(97, 9))),
+                  ovr_tab=torch.tensor(rng.integers(-1, 6, 97), dtype=torch.int32,
+                                       device=dev))
+    return (blk, sl_k % n_msl, lo, hi, li, hu, hv, A3), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tangents", [False, True], ids=["ia_rows", "ia_rows_nm"])
+@pytest.mark.parametrize("two_level", [False, True], ids=["mesh", "instance_word"])
+@pytest.mark.parametrize("case", ["straggler", "full", "field", "one_item", "no_hit"])
+def test_b7_matches_plain_on_card(cuda_device, case, two_level, tangents):
+    """B7 on a straggler-sized batch (2,048 positions), a full one (147,456)
+    with long segments and with ~2 winners per superleaf (many items per
+    tile), a single item, and a batch with no winner (one empty item)."""
+
+    P, n_sl, n_msl, SP, hits = {
+        "straggler": (2048, 50, 50, 64, 600),
+        "full": (147_456, 300, 300, 256, 120_000),
+        "field": (147_456, 60_000, 4, 64, 120_000),
+        "one_item": (2048, 10, 10, 64, 100),
+        "no_hit": (2048, 10, 10, 64, 0)}[case]
+    args, kw = _attr_case(P, n_sl, n_msl, SP, hits, two_level, tangents,
+                          cuda_device, one_key=case == "one_item")
+    if case in ("one_item", "no_hit"):
+        assert int(kw["n_items"]) == 1
+    k = bvh.attr_fetch(*args, **kw)
+    p = bvh.attr_fetch_plain(*args, **kw)
+    assert k.shape == p.shape == (bvh.IA_ROWS_NM if tangents else bvh.IA_ROWS,
+                                  args[4].shape[0])
+    assert torch.equal(k, p)
+    assert bool((k != 0).any()) == (hits > 0)

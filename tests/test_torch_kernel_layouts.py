@@ -33,7 +33,21 @@ on the CPU.
   tools/prof_mega.py) each find their text in the sources once, and their
   reading of ptxas's register and spill report.
 - The packet kernel's constants copied in kernels/packet.py equal
-  csrc/packet.cu's.
+  csrc/packet.cu's; B1/B2's (kernels/dense_intersect.py) and B7's tile
+  (kernels/bvh.py ATTR_TILE) equal csrc/dense_intersect.cu's and
+  csrc/bvh.cu's, and B2's shared memory leaves the registers to set its
+  occupancy.
+- B7's lookup (the same search as B6's) on the work items
+  intersect._attr_fetch_args makes for a terrain's, an instanced field's
+  and an all-miss batch's winners (misses keyed n_sl, the lo == hi tail)
+  against `_item_lanes`.
+- B2's attribute phase as the kernel tiles it (warps of 32 rays, chunks of
+  TILE_W columns read as quarter rows, four rays per warp load, a padded
+  tile), emulated in PyTorch, equals A[idx].T with zeros on misses, and
+  its tile accesses are free of bank conflicts.
+- The launch recorder of the replay tools (tools/replay.record_launches)
+  on a small render on the CPU: every call recorded, tensor arguments
+  copied, the scene's tables shared.
 
 Everything here is exact: no tolerance."""
 
@@ -52,7 +66,9 @@ from lupinpathtracer_tpu_torch.kernels import bvh as tbvh
 from lupinpathtracer_tpu_torch.kernels import intersect as tint
 from lupinpathtracer_tpu_torch.kernels import cuda_build, mega
 from lupinpathtracer_tpu_torch.kernels import packet as tpacket
-from lupinpathtracer_tpu_torch.tools import prof_mega, prof_packet, prof_pair, prof_top
+from lupinpathtracer_tpu_torch.kernels import dense_intersect as tdk
+from lupinpathtracer_tpu_torch.tools import (
+    prof_dense, prof_mega, prof_packet, prof_pair, prof_top, replay)
 
 PB = 256
 
@@ -407,7 +423,8 @@ def test_b5_network_layers_equal_the_comparators():
 
 @pytest.mark.parametrize("name,variants", [("packet", prof_packet.VARIANTS),
                                            ("bvh", prof_top.SHAPES),
-                                           ("mega", prof_mega.VARIANTS)])
+                                           ("mega", prof_mega.VARIANTS),
+                                           ("dense_intersect", prof_dense.VARIANTS)])
 def test_profiling_copies_find_their_edits(name, variants):
     with open(f"{cuda_build.CSRC}/{name}.cu") as f:
         src = f.read()
@@ -448,3 +465,158 @@ ptxas info    : Used 40 registers, 528 bytes cmem[0]
                                           "_ZN4lupin1kILb0EEEvv": (40, 0)}
     mega_log = log.replace("1kILb", "11mega_kernelILb")
     assert prof_mega.usage(mega_log) == {"smem": (64, 36), "global": (40, 0)}
+
+
+def _kernel_constants(name):
+    with open(f"{cuda_build.CSRC}/{name}.cu") as f:
+        src = f.read()
+    return {k: int(v, 0) for k, v in re.findall(
+        r"constexpr (?:int|unsigned) (\w+) = (\w+?)u?;", src)}
+
+
+def test_dense_constants_are_the_kernel_source():
+    """B1/B2's launch shape copied in kernels/dense_intersect.py is
+    csrc/dense_intersect.cu's; smem_bytes is its shared memory (a stage of
+    min(Tg, STAGE_GROUPS) 640-byte groups, B2's four warp tiles of
+    32 x (TILE_W + 1) floats reusing it), and at any T the dense gate
+    admits MIN_BLOCKS blocks of it (plus the 1 KB the card reserves per
+    block) fit an SM's 228 KB: the registers, not shared memory, set the
+    kernel's occupancy (MIN_BLOCKS x 4 warps)."""
+
+    const = _kernel_constants("dense_intersect")
+    assert const["THREADS"] == tdk.THREADS
+    assert const["MIN_BLOCKS"] == tdk.MIN_BLOCKS
+    assert const["STAGE_GROUPS"] == tdk.STAGE_GROUPS
+    assert const["TILE_W"] == tdk.TILE_W
+    assert 65536 // (tdk.MIN_BLOCKS * tdk.THREADS) >= 64  # registers a thread
+    tile = 4 * 32 * (tdk.TILE_W + 1) * (tdk.THREADS // 32)
+    for T in (1, 36, 37, 103, 104, 105, 556, 2048):
+        stage = 640 * min(-(-T // 4), tdk.STAGE_GROUPS)
+        assert tdk.smem_bytes(T, False) == stage
+        assert tdk.smem_bytes(T, True) == max(stage, tile)
+        assert tdk.MIN_BLOCKS * (tdk.smem_bytes(T, True) + 1024) <= 228 * 1024
+    assert tdk.smem_bytes(36, False) == 5760 and tdk.smem_bytes(36, True) == 16896
+
+
+def test_attr_tile_is_the_kernel_source():
+    assert _kernel_constants("bvh")["AT_TILE"] == tbvh.ATTR_TILE
+
+
+@pytest.mark.parametrize("name", ["terrain", "field", "all_miss"])
+def test_attr_item_map_matches_item_lanes(top_scenes, name):
+    """The items _attr_fetch_args builds for B7 (winners sorted by
+    superleaf, misses keyed n_sl and sorted last, the lo == hi tail past
+    n_items): every covered position maps to the item `_item_lanes` gives
+    it, exactly the winners are covered, and nothing else maps."""
+
+    scene = top_scenes["terrain" if name == "all_miss" else name]
+    rng = np.random.default_rng(7)
+    B = 3000  # not a multiple of the pair block: padded positions
+    n_tris = scene.sl_count * scene.sl_stride
+    hit = torch.tensor(rng.random(B) < (0.0 if name == "all_miss" else 0.7))
+    tri = torch.tensor(rng.integers(0, n_tris, B), dtype=torch.int32)
+    z = torch.zeros(B)
+    h = tint.HitInfo(hit=hit, dst=torch.where(hit, 1.0, tint.F32_MAX), u=z, v=z,
+                     tri=tri, backside=hit & False)
+    args, kw, order, hitm = tint._attr_fetch_args(scene, h)
+    blk, _, lo, hi, li = args[:5]
+    n_items, PB, P = kw["n_items"], kw["pair_block"], li.shape[0]
+    assert P % PB == 0 and P >= B
+    assert int(n_items) < blk.shape[0]
+    assert bool((lo[int(n_items):] == hi[int(n_items):]).all())
+    item = tbvh.pair_item_map(blk, lo, hi, n_items, PB, P)
+    pos, ref = tbvh._item_lanes(blk, lo, hi, n_items, PB, P)
+    want = torch.full((P,), -1, dtype=torch.int64)
+    want[pos] = ref
+    assert torch.equal(item, want)
+    assert torch.equal(item >= 0, hitm[order])
+    assert int((item >= 0).sum()) == int(hit.sum())
+
+
+def _emulate_b2_tiles(A, idx, hit, B, tile_w=tdk.TILE_W):
+    """csrc/dense_intersect.cu's attribute phase in PyTorch: per warp of 32
+    rays and chunk of tile_w columns, lane l reads the four columns
+    4 (l % 8) of ray j + l // 8 of its warp (j = 0, 4, ..., 28) into a
+    32 x (tile_w + 1) tile, zeros for a miss or a lane past B; then lane l
+    writes column c of ray l. Returns (attr (aw, B), the tile's bank of each
+    write and read, per warp instruction)."""
+
+    aw = A.shape[1]
+    out = torch.full((aw, B), float("nan"))
+    row = torch.where(hit, idx.long(), -1)
+    lane = torch.arange(32)
+    sub, col = lane // 8, 4 * (lane % 8)
+    banks = []
+    for ray0 in range(0, B, 32):
+        rows = torch.full((32,), -1, dtype=torch.int64)
+        n = min(32, B - ray0)
+        rows[:n] = row[ray0:ray0 + n]
+        for c0 in range(0, aw, tile_w):
+            tile = torch.full((32 * (tile_w + 1),), float("nan"))
+            for j in range(0, 32, 4):
+                rw = rows[j + sub]  # the shuffle from lane j + sub
+                for e in range(4):
+                    ok = (rw >= 0) & (c0 + col + e < aw)
+                    x = torch.where(ok, A[rw.clamp_min(0), (c0 + col + e).clamp_max(aw - 1)], 0.0)
+                    at = (j + sub) * (tile_w + 1) + col + e
+                    tile[at] = x
+                    banks.append(at % 32)
+            for c in range(min(tile_w, aw - c0)):
+                at = lane * (tile_w + 1) + c
+                banks.append(at % 32)
+                out[c0 + c, ray0:ray0 + n] = tile[at][:n]
+    return out, banks
+
+
+@pytest.mark.parametrize("aw", [128, 36])
+@pytest.mark.parametrize("B", [1, 31, 33, 100])
+def test_b2_attribute_tiles_equal_the_gather(B, aw):
+    rng = np.random.default_rng(B)
+    T = 37
+    A = torch.tensor(rng.normal(size=(T, aw)), dtype=torch.float32)
+    idx = torch.tensor(rng.integers(0, T, B), dtype=torch.int32)
+    hit = torch.tensor(rng.random(B) < 0.8)
+    out, banks = _emulate_b2_tiles(A, idx, hit, B)
+    want = torch.where(hit[:, None], A[idx.long()], 0.0).T
+    assert torch.equal(out, want)
+    # Each warp instruction's 32 lanes hit 32 distinct banks.
+    assert all(len(set(b.tolist())) == 32 for b in banks)
+
+
+def test_record_launches_copies_arguments_and_shares_tables():
+    """record_launches on B2 over one accumulation of a small DIRECT render
+    of the Cornell box on the CPU: every call recorded, each replayed call
+    equal to what the render got, R cloned, W4 and the attribute table
+    shared; the wrapper restored after the run."""
+
+    from lupinpathtracer_tpu_torch.core.types import PathtraceDesc, PathtraceType
+
+    box, cams = builtin.build_scene_cornell_box()
+    scene = tl.build_scene_torch(box, device="cpu")
+    desc = PathtraceDesc()
+    desc.camera_transform = cams[0].transform
+    desc.camera_params = cams[0].params
+    desc.pathtrace_type = PathtraceType.DIRECT
+    seen = []
+    real = tdk.dense_closest_hit_attrs
+
+    def spy(*a):
+        out = real(*a)
+        seen.append((a[2], out))
+        return out
+
+    tdk.dense_closest_hit_attrs = spy
+    try:
+        rec = replay.record_launches(
+            tdk, "dense_closest_hit_attrs",
+            replay.one_accumulation(scene, desc, 16, 12, 2, 3), share=(0, 1))
+    finally:
+        tdk.dense_closest_hit_attrs = real
+    assert tdk.dense_closest_hit_attrs is real
+    assert len(rec) == len(seen) > 0
+    for (a, kw), (R, out) in zip(rec, seen):
+        assert kw == {}
+        assert a[0] is tint.scene_tri_matrix(scene) and a[1] is scene.wt_attr
+        assert a[2] is not R and torch.equal(a[2], R)
+        for x, y in zip(tdk.dense_closest_hit_attrs(*a), out):
+            assert torch.equal(x, y)
