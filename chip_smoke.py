@@ -30,16 +30,31 @@ main paths through its entry points:
   (tools/prof_top.py), B6 against V0 (B6's earlier design) the same
   way (tools/prof_pair.py), and B7 against its plain version
   (tools/replay.py);
+- the rest of the render API: MIS on the Cornell box (512x512, 16 spp,
+  8 bounces: B2) and the 32x32 MIS golden on the dense and the BVH route;
+  MIS on terrain2M and instanced100k (512x288, 4 spp, 8 bounces: B4 on the
+  camera prologue, B5/B6/B7 on the three-slot bounce batches); on all
+  three, every launch of one 1-spp accumulation replayed against its
+  plain version (B6 also against V0); all 12 falsecolor AOVs on the three scenes (B2; B4 with
+  attributes; B4 and B7), every launch of an ALBEDO and a NORMALS dispatch
+  replayed, a 32x32 tile of each image against the same tile dispatched on
+  CPU tensors; the three debug heatmaps on terrain2M (every B5 launch of
+  the counting pass replayed, its aabb counts equal); the denoiser on a
+  terrain2M accumulation guided by its ALBEDO and NORMALS AOVs, against
+  the same call on CPU tensors; LUPIN_SPP_STREAMS K = 1, 2 and 4 on both
+  BVH main paths (the traced segments equal to K = 1's, the image within
+  rtol 3e-6 / atol 1e-6);
 - B6 and the B6' ablation variants (tools/prof_pair.py of the port) in
   turns on the round-1 states of the terrain2M and instanced100k camera
   batches, with the share of B6's threads that hold a pair in each design.
-Each phase prints one JSON line; any failure raises and exits nonzero. The
-kernels line holds each kernel's (and mode's) launches on its main path,
+Each phase prints one JSON line (t_s: the script's clock); any failure
+raises and exits nonzero. The kernels line holds each kernel's (and mode's) launches on its main path,
 its error against the plain version, its device time (torch.profiler) and
 the plain version's wall time (CUDA events) at the main path's shapes, and
 its bound on an H100 (FP32 67 TFLOP/s, HBM 3.35 TB/s); B5's main-path
-entries, and the entries of B2 and B7 named "mean per main-path launch",
-are the means over the replayed launches.
+entries, and the entries named "mean per (main-path) launch", are the
+means over the replayed launches, and `launches_in` names the run whose
+launches an entry counts.
 The last line is {"ok": true, "device": {...}}. Without a GPU it exits
 nonzero and prints no result. Imports nothing of JAX.
 """
@@ -59,6 +74,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32 = 67e12  # H100 SXM FP32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "cornell_32_standard.npy")
+GOLDEN_MIS = os.path.join(ROOT, "tests", "goldens", "cornell_32_mis.npy")
 TERRAIN_TRIS = 2_000_000  # bench.py's terrain2M
 FIELD_INSTANCES = 100_000  # bench.py's instanced100k
 SMALL_FIELD_INSTANCES = 2_000  # the card tests' field, at the main path's shapes
@@ -72,8 +88,14 @@ ROTATE_OPS = 2 * 15 + 8  # B7 per winner: two rotations, gn's length and scale
 IA_ROWS, IA_ROWS_NM = 16, 24  # B7's output rows (kernels/bvh.py)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's clock (t_s) at its print."""
+
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": round(time.perf_counter() - _T0, 2)}), flush=True)
 
 
 def cuda_ms(fn, reps: int):
@@ -176,7 +198,8 @@ KERNEL_GROUPS = (("B4", "packet_kernel"), ("B5", "top_kernel"),
 def device_profile(fn):
     """Device time of one call of fn by kernel group (torch.profiler, CUDA
     activity only, so the host is not slowed by op recording): the port's
-    BVH kernels, sorts, copies/fills and every other PyTorch kernel, plus
+    BVH kernels, sorts, copies/fills and every other PyTorch kernel (the
+    six that take the most time, by name, with their ms and count), plus
     the busy share of the call's wall time (the union of kernel spans)."""
 
     from torch.profiler import ProfilerActivity, profile
@@ -189,6 +212,7 @@ def device_profile(fn):
     wall_ms = (time.perf_counter() - t0) * 1e3
     ms: dict = {}
     n: dict = {}
+    other: dict = {}
     spans = []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -203,15 +227,21 @@ def device_profile(fn):
         ms[g] = ms.get(g, 0.0) + (b - a) / 1e3
         n[g] = n.get(g, 0) + 1
         spans.append((a, b))
+        if g == "other_torch":
+            k = e.name[:60]
+            t, c = other.get(k, (0.0, 0))
+            other[k] = (t + (b - a) / 1e3, c + 1)
     busy = 0.0
     end = float("-inf")
     for a, b in sorted(spans):
         if b > end:
             busy += b - max(a, end)
             end = b
+    top = sorted(other.items(), key=lambda kv: -kv[1][0])[:6]
     return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy / 1e3,
                 profiled_idle_share=1.0 - busy / 1e3 / wall_ms,
-                device_ms_by_group=ms, kernels_by_group=n)
+                device_ms_by_group=ms, kernels_by_group=n,
+                top_other_torch=[[k, round(t, 3), c] for k, (t, c) in top])
 
 
 def attr_row_bytes(with_tangents: bool) -> int:
@@ -270,15 +300,18 @@ def b2_bound(rays, tris, columns):
 def b7_bound(work, row_bytes):
     """B7's bound for one launch (tools/replay.attr_work): per winner the
     interpolation (11 sums of 5 operations) and, with the instance word,
-    the rotations; bytes: per winner the row's touched sectors and its li,
-    hu, hv, the (rows, positions) output written, the items read (blk, msl,
-    lo, hi and the instance word) and each distinct instance's normal
-    matrix and override."""
+    the rotations; bytes: the touched sectors of each distinct attribute
+    row the winners read (read once), per winner its li, hu, hv and its
+    output rows (the kernel writes only the winners' columns of the (rows,
+    positions) output; the wrapper's zero fill of the others is a memset
+    of its own), the items read (blk, msl, lo, hi and the instance word)
+    and each distinct instance's normal matrix and override."""
 
     rows = IA_ROWS_NM if work["tangents"] else IA_ROWS
     inst = work["instances"]
     return bound_ms(work["winners"] * (11 * 5 + (ROTATE_OPS if inst else 0)),
-                    work["winners"] * (row_bytes + 12) + work["positions"] * rows * 4
+                    work["distinct_rows"] * row_bytes
+                    + work["winners"] * (12 + rows * 4)
                     + work["items"] * (20 if inst else 16) + inst * 40)
 
 
@@ -376,8 +409,9 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
                height=288, spp=4, bounces=8, timed_accums=3):
     """Phases 7-10: the terrain build, B4-B7 against their plain versions at
     the BVH main path's shapes, the BVH main path, and the Cornell box on
-    the BVH route against the golden. Returns the B4-B7 kernel entries and
-    the terrain's (scene, camera rays, W, eps) for the B6' phase."""
+    the BVH route against the golden. Returns the B4-B7 kernel entries,
+    the terrain's (scene, camera rays, W, eps) for the B6' phase and its
+    cameras."""
 
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.core import rng as rng_mod
@@ -589,24 +623,37 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
         entry("B7 attr_fetch (mean per main-path launch)", "bvh.cu",
               "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
               launches["attr_fetch"], *b7_replay),
-    ], (ts, ro, rd, W, eps)
+    ], (ts, ro, rd, W, eps), cams
 
 
-def emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi):
+def emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi,
+                     plain=False, what="STANDARD"):
     """B6 and its earlier design (V0) on every B6 launch of one main-path
-    accumulation (tools/prof_pair.main_path_launches): their sums, and per
-    launch [pairs, tiles, mean and largest superleaves per tile, split
-    chunks, B6 ms, V0 ms]."""
+    accumulation (tools/prof_pair.main_path_launches; desc's integrator,
+    named by `what`): their sums, and per launch [pairs, tiles, mean and
+    largest superleaves per tile, split chunks, B6 ms, V0 ms]. With
+    `plain`, each launch is also held equal to its plain version, and
+    replay_entry's values for the kernels line are returned."""
 
     from lupinpathtracer_tpu_torch.tools import prof_pair
 
-    runs = prof_pair.main_path_launches(ts, desc, width, height, spp, bounces)
-    emit("b6_main_path_launches", scene=tag, card=smi, launches=len(runs),
+    runs = prof_pair.main_path_launches(ts, desc, width, height, spp, bounces,
+                                        plain=plain)
+    emit("b6_main_path_launches", scene=tag, integrator=what, card=smi,
+         launches=len(runs), equal_to_v0=True, equal_to_plain=plain or None,
          b6_ms=sum(r["b6_ms"] for r in runs), v0_ms=sum(r["v0_ms"] for r in runs),
+         plain_ms=sum(r["plain_ms"] for r in runs) if plain else None,
          timed_by=sorted({r["timed_by"] for r in runs}),
          per_launch=[[r["pairs"], r["tiles"], round(r["superleaves_per_tile"], 2),
                       r["superleaves_per_tile_max"], r["split_chunks"],
                       round(r["b6_ms"], 4), round(r["v0_ms"], 4)] for r in runs])
+    if plain:
+        SP = ts.sl_stride
+        bnds = [bound_ms(r["pairs"] * SP * PAIR_OPS,
+                         r["pairs"] * (24 + 20) + r["items"] * 16
+                         + r["superleaves"] * SP * 160) for r in runs]
+        return replay_entry([dict(ms=r["b6_ms"], **r) for r in runs], bnds)
+    return None
 
 
 def replay_entry(runs, bnds, err=0.0):
@@ -623,17 +670,19 @@ def replay_entry(runs, bnds, err=0.0):
             timed_by[0] if timed_by == ["device_records"] else "events")
 
 
-def emit_b2_launches(scene, desc, smi, width=512, height=512, spp=16, bounces=8):
-    """B2 on every B2 launch of one accumulation of the Cornell DIRECT
-    wavefront (tools/replay.b2_launches), each equal to its plain version
-    on every output: the sums and per launch [rays, hits, ms, plain ms,
-    bound ms]. Returns replay_entry's values for the kernels line."""
+def emit_b2_launches(scene, desc, smi, width=512, height=512, spp=16, bounces=8,
+                     what="DIRECT", run=None):
+    """B2 on every B2 launch of one accumulation of the Cornell wavefront
+    (tools/replay.b2_launches; desc's integrator, named by `what`) or of
+    run() (a falsecolor dispatch), each equal to its plain version on every
+    output: the sums and per launch [rays, hits, ms, plain ms, bound ms].
+    Returns replay_entry's values for the kernels line."""
 
     from lupinpathtracer_tpu_torch.tools import replay
 
-    runs = replay.b2_launches(scene, desc, width, height, spp, bounces)
+    runs = replay.b2_launches(scene, desc, width, height, spp, bounces, run=run)
     bnds = [b2_bound(r["rays"], r["tris"], r["columns"]) for r in runs]
-    emit("b2_main_path_launches", scene="cornell", integrator="DIRECT", card=smi,
+    emit("b2_main_path_launches", scene="cornell", integrator=what, card=smi,
          launches=len(runs), all_outputs_equal=True,
          ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
          bound_ms=sum(b[0] for b in bnds), bound_by=sorted({b[1] for b in bnds}),
@@ -643,17 +692,20 @@ def emit_b2_launches(scene, desc, smi, width=512, height=512, spp=16, bounces=8)
     return replay_entry(runs, bnds)
 
 
-def emit_b7_launches(ts, desc, width, height, spp, bounces, tag, smi):
+def emit_b7_launches(ts, desc, width, height, spp, bounces, tag, smi,
+                     what="STANDARD", run=None):
     """B7 on every B7 launch of one main-path accumulation
-    (tools/replay.b7_launches), each equal to its plain version: the sums
-    and per launch [positions, winners, items, tiles, instances, ms, plain
-    ms, bound ms]. Returns replay_entry's values for the kernels line."""
+    (tools/replay.b7_launches; desc's integrator, named by `what`) or of
+    run(), each equal to its plain version: the sums and per launch
+    [positions, winners, items, tiles, instances, ms, plain ms, bound ms].
+    Returns replay_entry's values for the kernels line."""
 
     from lupinpathtracer_tpu_torch.tools import replay
 
-    runs = replay.b7_launches(ts, desc, width, height, spp, bounces)
+    runs = replay.b7_launches(ts, desc, width, height, spp, bounces, run=run)
     bnds = [b7_bound(r, attr_row_bytes(r["tangents"])) for r in runs]
-    emit("b7_main_path_launches", scene=tag, card=smi, launches=len(runs),
+    emit("b7_main_path_launches", scene=tag, integrator=what, card=smi,
+         launches=len(runs),
          all_outputs_equal=True, ms=sum(r["ms"] for r in runs),
          plain_ms=sum(r["plain_ms"] for r in runs), bound_ms=sum(b[0] for b in bnds),
          bound_by=sorted({b[1] for b in bnds}),
@@ -664,21 +716,25 @@ def emit_b7_launches(ts, desc, width, height, spp, bounces, tag, smi):
     return replay_entry(runs, bnds)
 
 
-def emit_b5_launches(ts, desc, width, height, spp, bounces, tag, smi):
+def emit_b5_launches(ts, desc, width, height, spp, bounces, tag, smi,
+                     what="STANDARD", run=None):
     """B5 on every B5 launch of one main-path accumulation
-    (tools/prof_top.main_path_launches), each equal to its plain version:
-    the sums, and per launch [lanes, live lanes, Q, pops, pushes, emits,
-    rows read, ms, plain ms, bound ms]. Returns the largest output
-    difference over the launches and the means per launch (ms, plain ms,
-    bound, timed_by) for the kernels line."""
+    (tools/prof_top.main_path_launches; desc's integrator, named by `what`)
+    or of run() (a debug dispatch's counting pass), each equal to its plain
+    version, aabb included: the sums, and per launch [lanes, live lanes, Q,
+    pops, pushes, emits, rows read, ms, plain ms, bound ms]. Returns the
+    largest output difference over the launches and the means per launch
+    (ms, plain ms, bound, timed_by) for the kernels line."""
 
     from lupinpathtracer_tpu_torch.tools import prof_top
 
-    runs = prof_top.main_path_launches(ts, desc, width, height, spp, bounces)
+    runs = prof_top.main_path_launches(ts, desc, width, height, spp, bounces,
+                                       run=run)
     bnds = [b5_bound(r["lanes"], r["Q"], r["aabb_tests"], r["pops"],
                      r["pushes"], r["hist_bins"], r["rows_read"]) for r in runs]
     err = max((r["max_abs_err"] for r in runs), default=0.0)
-    emit("b5_main_path_launches", scene=tag, card=smi, launches=len(runs),
+    emit("b5_main_path_launches", scene=tag, integrator=what, card=smi,
+         launches=len(runs), aabb_tests=sum(r["aabb_tests"] for r in runs),
          max_abs_err_stack_below_sp=err, ms=sum(r["ms"] for r in runs),
          plain_ms=sum(r["plain_ms"] for r in runs), bound_ms=sum(b[0] for b in bnds),
          bound_by=sorted({b[1] for b in bnds}),
@@ -786,7 +842,7 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     # B6 on the round's pairs, each item's rays moved to mesh space by its
     # instance word in the kernel.
     c0 = dict(stack=stack0.clone(), sp=sp0, best_t=bt0)
-    pre_ms, (args6, kw6, skey, _, n_real, _, _) = plain_ms(
+    pre_ms, (args6, kw6, skey, _, n_real, *_) = plain_ms(
         lambda: intersect._wf_pairs(ts, tab, op, dp, c0, S=S,
                                     PB=intersect.WF_PAIR_BLOCK, Q=Q))
     assert kw6["inst"] is not None
@@ -859,8 +915,8 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                      timed_accums=3):
     """The two-level route: the 100,000-instance field's build, kernels,
     main path and B5/B6 replays, and the 2,000-instance field's kernels and
-    one accumulation. Returns their kernel entries and the 100k field's
-    (scene, camera rays, W, eps) for the B6' phase."""
+    one accumulation. Returns their kernel entries, the 100k field's
+    (scene, camera rays, W, eps) for the B6' phase and its cameras."""
 
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.io import synthetic
@@ -930,6 +986,7 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
             assert launches[key] > 0, launches
         if big:
             state = (ts, *cam_batch)
+            big_cams = cams
             prof = device_profile(lambda: lt.render_progressive(
                 ts, desc, baked, width, height, 1, device=dev))
             emit("main_path_instanced_profile", scene=tag, accumulations=1,
@@ -962,7 +1019,368 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                 f"B7 attr_fetch (instance word; {tag}; mean per main-path launch)",
                 "bvh.cu", "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
                 launches["attr_fetch"], *meas["b7_replay"]))
-    return kernels, state
+    return kernels, state, big_cams
+
+
+# The new phases' sizes (bench.py's widths; 16 spp on the dense MIS path
+# and 8 bounces everywhere are the depth cuts PERF.md section 4 lists).
+API = dict(dense_wh=(512, 512), dense_spp=16, bvh_wh=(512, 288), bvh_spp=4,
+           bounces=8)
+
+
+def emit_b4_launches(ts, run, tag, smi, what):
+    """B4 on every B4 launch of run() (tools/replay.b4_launches), each
+    equal to its plain version: the sums and per launch [rays, hits, ms,
+    plain ms, bound ms]. Returns replay_entry's values for the kernels
+    line."""
+
+    from lupinpathtracer_tpu_torch.tools import replay
+
+    runs = replay.b4_launches(ts, run)
+    rows = ts.top_tab.shape[0]
+    row_b = attr_row_bytes(bool(ts.any_normal_maps))
+    bnds = []
+    for r in runs:
+        w, B = r["counts"], r["rays"]
+        if ts.two_level:
+            bnds.append(b4_bound(w, B, B * 20, rows, ts.sl_sub.numel(),
+                                 extra_ops=w["leaf_visits"] * LEAF_FRAME_OPS,
+                                 extra_bytes=w["leaf_visits"] * 64))
+        else:
+            bnds.append(b4_bound(w, B, B * (20 + r["attr_rows"] * 4)
+                                 + (r["hits"] * row_b if r["attr_rows"] else 0),
+                                 rows, ts.sl_sub.numel()))
+    emit("b4_main_path_launches", scene=tag, integrator=what, card=smi,
+         launches=len(runs), all_outputs_equal=True, ms=sum(r["ms"] for r in runs),
+         plain_ms=sum(r["plain_ms"] for r in runs), bound_ms=sum(b[0] for b in bnds),
+         bound_by=sorted({b[1] for b in bnds}),
+         timed_by=sorted({r["timed_by"] for r in runs}),
+         per_launch=[[r["rays"], r["hits"], r["attr_rows"], round(r["ms"], 5),
+                      round(r["plain_ms"], 2), round(b[0], 6)]
+                     for r, b in zip(runs, bnds)])
+    return replay_entry(runs, bnds)
+
+
+def timed_render(scene, desc, baked, width, height, accums, counters, dev):
+    """One warm-up accumulation, then `accums` timed ones with the counters
+    set to 0 just before: (warm-up s, wall s, rays, image)."""
+
+    import lupinpathtracer_tpu_torch as lt
+
+    t0 = time.perf_counter()
+    lt.render_progressive(scene, desc, baked, width, height, 1, device=dev)
+    warm_s = time.perf_counter() - t0
+    stats: dict = {}
+    reset(*counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = lt.render_progressive(scene, desc, baked, width, height, accums,
+                                device=dev, stats=stats)
+    return warm_s, time.perf_counter() - t0, stats["rays"], img
+
+
+def dispatch_ms(fn):
+    """(ms, output) of one dispatch on the card, host and device (wall
+    time between two synchronizations)."""
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+B2_SITE = "lupinpathtracer_tpu/kernels/pallas_intersect.py:298"
+B4_SITE = "lupinpathtracer_tpu/kernels/pallas_packet.py:1011"
+B5_SITE = "lupinpathtracer_tpu/kernels/pallas_bvh.py:344"
+B6_SITE = "lupinpathtracer_tpu/kernels/pallas_bvh.py:665"
+B7_SITE = "lupinpathtracer_tpu/kernels/pallas_bvh.py:896"
+
+
+def mis_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
+    """Phases 14-15: MIS on the dense route (Cornell 512², 16 spp: B2; the
+    32² MIS golden on the dense and the BVH route) and on both BVH main
+    paths (B4 on the camera prologue, B5/B6/B7 on the three-slot bounce
+    batches). On each, every launch of one accumulation of 1 spp (a depth
+    cut) is replayed against its plain version, B6 also against V0.
+    Returns the kernel entries."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+    from lupinpathtracer_tpu_torch.render import integrators
+    from lupinpathtracer_tpu_torch.tools.replay import one_accumulation
+
+    MIS = lt.PathtraceType.MIS
+    kernels = []
+
+    # -- 14. MIS on the dense route: outside B3's gate, the wavefront with B2.
+    desc = cornell_desc(lt, cams_c, MIS)
+    (dw, dh), dspp, nb = API["dense_wh"], API["dense_spp"], API["bounces"]
+    baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=dspp)
+    warm_s, wall, rays, img = timed_render(scene_c, desc, baked, dw, dh, 1,
+                                           counters, dev)
+    launches_b2 = dk.LAUNCHES["dense_closest_hit_attrs"]
+    emit("main_path_mis", scene="cornell", integrator="MIS", width=dw, height=dh,
+         bounces=nb, spp=dspp, accumulations=1, warmup_s=warm_s,
+         s_per_accumulation=wall, rays=rays, mrays_per_s=rays / wall / 1e6,
+         launches={**dk.LAUNCHES, **mega.LAUNCHES},
+         host_syncs={**intersect.HOST_SYNCS, **integrators.HOST_SYNCS},
+         image_mean=float(img.mean()), card=smi)
+    assert launches_b2 > 0 and mega.LAUNCHES["mega_pathtrace_spp"] == 0
+    assert np.isfinite(img).all() and img.mean() > 0
+    kernels.append(entry(
+        "B2 dense_closest_hit_attrs (Cornell MIS, mean per main-path launch)",
+        "dense_intersect.cu", B2_SITE, launches_b2,
+        *emit_b2_launches(scene_c, desc, smi, dw, dh, 1, nb, what="MIS"),
+        launches_in="main_path_mis"))
+
+    golden = np.load(GOLDEN_MIS)
+    for route in ("dense", "bvh"):
+        reset(*counters)
+        desc_g = cornell_desc(lt, cams_c, MIS, max_radiance=10.0)
+        desc_g.force_software_bvh = route == "bvh"
+        img_g = lt.render_progressive(
+            scene_c, desc_g, lt.BakedPathtraceParams(max_bounces=8, samples_per_pixel=8),
+            32, 32, 8, device=dev)
+        within = float((np.abs(img_g - golden) <= 2e-3).mean())
+        mean_rel = abs(float(img_g.mean()) - float(golden.mean())) / float(golden.mean())
+        emit("golden_mis", route=route, atol=2e-3, pixels_within_atol=within,
+             mean_rel_diff=mean_rel, max_abs_diff=float(np.abs(img_g - golden).max()),
+             launches={**dk.LAUNCHES, **bvh.LAUNCHES, **mega.LAUNCHES})
+        assert mega.LAUNCHES["mega_pathtrace_spp"] == 0
+        assert (bvh.LAUNCHES["pair_intersect"] > 0) == (route == "bvh")
+        assert within >= 0.99 and mean_rel <= 0.01
+
+    # -- 15. MIS on the BVH main paths.
+    (w, h), spp = API["bvh_wh"], API["bvh_spp"]
+    for tag, (ts, cams), accums in (("terrain2M", bvh_scenes["terrain2M"], 2),
+                                    ("instanced100k", bvh_scenes["instanced100k"], 1)):
+        desc = cornell_desc(lt, cams, MIS, max_radiance=10.0)
+        baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=spp)
+        warm_s, wall, rays, img = timed_render(ts, desc, baked, w, h, accums,
+                                               counters, dev)
+        launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+        dense = {**dk.LAUNCHES, **mega.LAUNCHES}
+        emit("main_path_bvh_mis", scene=tag, integrator="MIS", width=w, height=h,
+             bounces=nb, spp=spp, accumulations=accums, warmup_s=warm_s, wall_s=wall,
+             s_per_accumulation=wall / accums, rays=rays,
+             mrays_per_s=rays / wall / 1e6,
+             launches_per_accumulation={k: v / accums for k, v in launches.items()},
+             host_syncs_per_accumulation={
+                 k: v / accums for k, v in {**intersect.HOST_SYNCS,
+                                            **integrators.HOST_SYNCS}.items()},
+             dense_launches=dense, image_mean=float(img.mean()),
+             image_finite=bool(np.isfinite(img).all()), card=smi)
+        assert all(launches[k] > 0 for k in (
+            "packet_traverse", "top_traverse", "pair_intersect", "attr_fetch")), launches
+        assert not any(dense.values()) and np.isfinite(img).all() and img.mean() > 0
+        prof = device_profile(lambda: lt.render_progressive(
+            ts, desc, baked, w, h, 1, device=dev))
+        emit("main_path_bvh_mis_profile", scene=tag, accumulations=1, card=smi,
+             device_busy_share_of_timed_wall=prof["device_busy_ms"] * 1e-3
+             * accums / wall, **prof)
+        run = one_accumulation(ts, desc, w, h, 1, nb)
+        path = f"main_path_bvh_mis {tag}"
+        kernels += [
+            entry(f"B4 packet_traverse ({tag} MIS camera prologue)", "packet.cu",
+                  B4_SITE, launches["packet_traverse"],
+                  *emit_b4_launches(ts, run, tag, smi, "MIS"), launches_in=path),
+            entry(f"B5 top_traverse ({tag} MIS, mean per main-path launch)", "bvh.cu",
+                  B5_SITE, launches["top_traverse"],
+                  *emit_b5_launches(ts, desc, w, h, 1, nb, tag, smi, what="MIS"),
+                  launches_in=path),
+            entry(f"B6 pair_intersect ({tag} MIS, mean per main-path launch)",
+                  "pair_intersect.cuh", B6_SITE, launches["pair_intersect"],
+                  *emit_b6_launches(ts, desc, w, h, 1, nb, tag, smi, plain=True,
+                                    what="MIS"), launches_in=path),
+            entry(f"B7 attr_fetch ({tag} MIS, mean per main-path launch)", "bvh.cu",
+                  B7_SITE, launches["attr_fetch"],
+                  *emit_b7_launches(ts, desc, w, h, 1, nb, tag, smi, what="MIS"),
+                  launches_in=path),
+        ]
+    return kernels
+
+
+def aov_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
+    """Phases 16-17: all 12 falsecolor AOVs on the Cornell box (512², B2),
+    terrain2M (512x288, B4 with attributes) and instanced100k (B4, B7) at
+    1 spp, every B2, B4 and B7 launch of an ALBEDO and a NORMALS dispatch
+    replayed, and a 32x32 tile of each image against the same tile
+    dispatched on CPU tensors; the three debug heatmaps on terrain2M (every
+    B5 launch of the counting pass replayed); the denoiser on a terrain2M
+    accumulation guided by its ALBEDO and NORMALS AOVs, against the same
+    call on CPU tensors. Returns the kernel entries."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+    from lupinpathtracer_tpu_torch.render import integrators
+
+    FC = lt.FalsecolorType
+    kernels = []
+    scenes = [("cornell", scene_c, cams_c, *API["dense_wh"], 10.0),
+              *((tag, ts, cams, *API["bvh_wh"], 10.0)
+                for tag, (ts, cams) in bvh_scenes.items())]
+    one = lt.BakedPathtraceParams(samples_per_pixel=1)
+    guides = {}
+    for tag, sc, cams, width, height, maxr in scenes:
+        desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=maxr)
+        cpu = sc.to("cpu")
+        tiles = lt.get_num_tiles(width, height, 32)
+        k_tile = tiles[0] * (tiles[1] // 2) + tiles[0] // 2  # a central tile
+        tx, ty = (k_tile % tiles[0]) * 32, (k_tile // tiles[0]) * 32
+        reset(*counters)
+        for fc in FC:
+            ms, img = dispatch_ms(lambda fc=fc: lt.pathtrace_scene_falsecolor(
+                sc, lt.new_accumulation_buffer(width, height, device=dev), desc,
+                one, fc))
+            desc_t = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=maxr)
+            desc_t.tile_params = lt.TileParams(enabled=True, tile_idx=k_tile,
+                                               tile_size=32)
+            t0 = time.perf_counter()
+            ref = lt.pathtrace_scene_falsecolor(
+                cpu, lt.new_accumulation_buffer(width, height, device="cpu"), desc_t,
+                one, fc)[ty:ty + 32, tx:tx + 32]
+            cpu_s = time.perf_counter() - t0
+            diff = (img[ty:ty + 32, tx:tx + 32].cpu() - ref).abs().amax(-1)
+            share = float((diff <= 1e-4).float().mean())
+            emit("aov", scene=tag, falsecolor=fc.name, width=width, height=height,
+                 spp=1, ms=ms, image_mean=float(img.mean()),
+                 tile_max_abs_diff_vs_cpu=float(diff.max()),
+                 tile_atol=1e-4, tile_share_within_atol=share, tile_cpu_s=cpu_s, card=smi)
+            assert bool(torch.isfinite(img).all()) and share >= 0.99
+            if tag == "terrain2M" and fc in (FC.ALBEDO, FC.NORMALS):
+                guides[fc] = img
+        launches = {**dk.LAUNCHES, **packet.LAUNCHES, **bvh.LAUNCHES}
+        emit("aov_launches", scene=tag, dispatches=len(FC), launches=launches,
+             host_syncs=dict(intersect.HOST_SYNCS), card=smi)
+        for fc in (FC.ALBEDO, FC.NORMALS):
+            def run(fc=fc):
+                return lt.pathtrace_scene_falsecolor(
+                    sc, lt.new_accumulation_buffer(width, height, device=dev), desc,
+                    one, fc)
+            what = f"falsecolor {fc.name}"
+            path = f"aov {tag} (12 dispatches)"
+            if tag == "cornell":
+                assert launches["dense_closest_hit_attrs"] > 0
+                kernels.append(entry(
+                    f"B2 dense_closest_hit_attrs (Cornell {what}, mean per launch)",
+                    "dense_intersect.cu", B2_SITE, launches["dense_closest_hit_attrs"],
+                    *emit_b2_launches(sc, desc, smi, what=what, run=run),
+                    launches_in=path))
+                continue
+            assert launches["packet_traverse"] > 0
+            kernels.append(entry(
+                f"B4 packet_traverse ({tag} {what}, mean per launch)", "packet.cu",
+                B4_SITE, launches["packet_traverse"],
+                *emit_b4_launches(sc, run, tag, smi, what), launches_in=path))
+            if sc.two_level:
+                assert launches["attr_fetch"] > 0
+                kernels.append(entry(
+                    f"B7 attr_fetch ({tag} {what}, mean per launch)", "bvh.cu",
+                    B7_SITE, launches["attr_fetch"],
+                    *emit_b7_launches(sc, desc, width, height, 1, 0, tag, smi,
+                                      what=what, run=run), launches_in=path))
+        del cpu
+
+    # -- 17. the debug heatmaps and the denoiser on terrain2M.
+    ts, cams = bvh_scenes["terrain2M"]
+    (w, h), nb = API["bvh_wh"], API["bounces"]
+    desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=10.0)
+    baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=API["bvh_spp"])
+    for mode, hi in (("tri_checks", 40960.0), ("aabb_checks", 400.0), ("bounces", 9.0)):
+        def run(mode=mode, hi=hi):
+            return lt.pathtrace_scene_debug(
+                ts, lt.new_accumulation_buffer(w, h, device=dev), desc, baked,
+                mode, heatmap_max=hi)
+        run()
+        reset(*counters)
+        ms, img = dispatch_ms(run)
+        launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+        emit("debug", scene="terrain2M", mode=mode, width=w, height=h, ms=ms,
+             launches=launches,
+             host_syncs={**intersect.HOST_SYNCS, **integrators.HOST_SYNCS},
+             image_mean=float(img.mean()), card=smi)
+        assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
+        if mode == "bounces":
+            assert launches["packet_traverse"] > 0 and launches["top_traverse"] > 0
+            continue
+        assert launches["packet_traverse"] == 0 and launches["top_traverse"] > 0
+        kernels.append(entry(
+            f"B5 top_traverse (terrain2M debug {mode} counting pass, mean per launch)",
+            "bvh.cu", B5_SITE, launches["top_traverse"],
+            *emit_b5_launches(ts, desc, w, h, 1, 0, "terrain2M", smi,
+                              what=f"debug {mode}", run=run),
+            launches_in=f"debug {mode} terrain2M"))
+
+    color = lt.render_progressive(ts, desc, baked, w, h, 1, device=dev)
+    color = torch.from_numpy(color).to(dev)
+    args = (color, guides[FC.ALBEDO], guides[FC.NORMALS])
+    d = lt.DenoiseDesc()
+    kw = dict(iterations=d.iterations, sigma_color=d.sigma_color,
+              sigma_albedo=d.sigma_albedo, sigma_normal=d.sigma_normal)
+    ms, out = cuda_ms(lambda: lt.denoise(*args, **kw), 3)
+    t0 = time.perf_counter()
+    ref = lt.denoise(*(a.cpu() for a in args), **kw)
+    cpu_s = time.perf_counter() - t0
+    err = float((out.cpu() - ref).abs().max())
+    emit("denoise", scene="terrain2M", width=w, height=h, guides=["ALBEDO", "NORMALS"],
+         iterations=d.iterations, ms=ms, cpu_s=cpu_s, max_abs_err_vs_cpu=err,
+         noisy_mean=float(color.mean()), denoised_mean=float(out.mean()), card=smi)
+    assert bool(torch.isfinite(out).all()) and err <= 1e-4
+    return kernels
+
+
+def streams_phase(dev, smi, bvh_scenes, counters):
+    """Phase 18: LUPIN_SPP_STREAMS K = 1, 2 and 4 (spp 4) on both BVH main
+    paths, K = 1 the control: per K one warm-up and one timed accumulation
+    (s, Mrays/s, launches, host syncs) and one profiled (device busy, the
+    other PyTorch launches); the traced segments equal to K = 1's, the
+    image within rtol 3e-6 / atol 1e-6 of it."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
+    from lupinpathtracer_tpu_torch.render import integrators
+
+    (w, h), spp, nb = API["bvh_wh"], API["bvh_spp"], API["bounces"]
+    baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=spp)
+    try:
+        for tag, (ts, cams) in bvh_scenes.items():
+            desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=10.0)
+            base = None
+            for K in (1, 2, 4):
+                os.environ["LUPIN_SPP_STREAMS"] = str(K)
+                mem0 = torch.cuda.memory_stats(dev)
+                warm_s, wall, rays, img = timed_render(ts, desc, baked, w, h, 1,
+                                                       counters, dev)
+                mem1 = torch.cuda.memory_stats(dev)
+                alloc = {k: mem1.get(k, 0) - mem0.get(k, 0) for k in (
+                    "num_device_alloc", "num_device_free", "num_alloc_retries")}
+                alloc["peak_allocated_gb"] = mem1.get("allocated_bytes.all.peak", 0) / 1e9
+                launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+                syncs = {**intersect.HOST_SYNCS, **integrators.HOST_SYNCS}
+                prof = device_profile(lambda: lt.render_progressive(
+                    ts, desc, baked, w, h, 1, device=dev))
+                if base is None:
+                    base = (rays, img)
+                same = bool(np.allclose(img, base[1], rtol=3e-6, atol=1e-6))
+                other = {g: n for g, n in prof["kernels_by_group"].items()
+                         if g not in dict(KERNEL_GROUPS)}
+                emit("spp_streams", scene=tag, K=K, spp=spp, bounces=nb, width=w,
+                     top_other_torch=prof["top_other_torch"],
+                     height=h, warmup_s=warm_s, s_per_accumulation=wall, rays=rays,
+                     mrays_per_s=rays / wall / 1e6, launches=launches, host_syncs=syncs,
+                     other_torch_launches=other,
+                     device_busy_ms=prof["device_busy_ms"],
+                     device_busy_share_of_timed_wall=prof["device_busy_ms"] * 1e-3 / wall,
+                     allocator_over_warmup_and_timed=alloc,
+                     rays_equal_k1=rays == base[0], image_within_tol_of_k1=same,
+                     image_max_abs_diff_vs_k1=float(np.abs(img - base[1]).max()),
+                     card=smi)
+                assert rays == base[0] and same
+    finally:
+        os.environ.pop("LUPIN_SPP_STREAMS", None)
 
 
 # f32 operations per ray/triangle test of each B6' variant: V1 and V3 trade
@@ -1304,13 +1722,29 @@ def main() -> int:
          total_s=time.perf_counter() - t_start)
 
     # -- 7-10. the BVH route -----------------------------------------------
-    bvh_kernels, terrain_state = bvh_phases(dev, smi, scene, cams)
+    bvh_kernels, terrain_state, terrain_cams = bvh_phases(dev, smi, scene, cams)
     emit("bvh_phases_done", total_s=time.perf_counter() - t_start)
 
-    # -- 11-13. the two-level route, then the B6' variants on both states ----
-    inst_kernels, field_state = instanced_phases(dev, smi)
+    # -- 11-13. the two-level route ------------------------------------------
+    inst_kernels, field_state, field_cams = instanced_phases(dev, smi)
     emit("instanced_phases_done", total_s=time.perf_counter() - t_start)
-    kernels += bvh_kernels + inst_kernels + prof_pair_phase(
+
+    # -- 14-18. the rest of the render API: MIS, AOVs, debug, denoise, streams
+    from lupinpathtracer_tpu_torch.kernels import bvh, packet
+
+    bvh_scenes = {"terrain2M": (terrain_state[0], terrain_cams),
+                  "instanced100k": (field_state[0], field_cams)}
+    counters = (dk.LAUNCHES, mega.LAUNCHES, bvh.LAUNCHES, packet.LAUNCHES,
+                intersect.HOST_SYNCS, integrators.HOST_SYNCS)
+    api_kernels = mis_phases(dev, smi, scene, cams, bvh_scenes, counters)
+    emit("mis_phases_done", total_s=time.perf_counter() - t_start)
+    api_kernels += aov_phases(dev, smi, scene, cams, bvh_scenes, counters)
+    emit("aov_phases_done", total_s=time.perf_counter() - t_start)
+    streams_phase(dev, smi, bvh_scenes, counters)
+    emit("streams_phase_done", total_s=time.perf_counter() - t_start)
+
+    # -- the B6' variants on both round-1 states ------------------------------
+    kernels += bvh_kernels + inst_kernels + api_kernels + prof_pair_phase(
         {"terrain2M": terrain_state, "instanced100k": field_state}, smi)
     emit("done", total_s=time.perf_counter() - t_start,
          kernels_timed_by_events_not_device_records=[

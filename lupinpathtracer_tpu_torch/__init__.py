@@ -7,9 +7,11 @@ JAX nor the JAX package. Entry points run on the GPU (`device="cuda"`)
 unless the caller passes `device="cpu"`, which runs the plain PyTorch
 versions of the kernels.
 
-This slice covers the progressive render of dense triangle scenes
-(<= 2048 world triangles) under the standard, naive and direct
-integrators; ROADMAP.md lists what is still to port.
+It covers the JAX package's render API: scene building (dense scenes and
+BVH scenes, single-level and two-level), the pathtrace dispatch under all
+four integrators, the falsecolor AOVs and debug heatmaps, tonemapping and
+the à-trous denoiser. The scene loaders, the apps and multi-device
+rendering are still to port (ROADMAP.md).
 """
 
 from .core.types import (
@@ -18,6 +20,7 @@ from .core.types import (
     BakedPathtraceParams,
     CameraParams,
     Environment,
+    FalsecolorType,
     Material,
     MaterialType,
     PathtraceDesc,
@@ -26,21 +29,33 @@ from .core.types import (
     TileParams,
     get_num_tiles,
 )
-from .scene.scene import InstanceCPU, MeshCPU, SceneCPU, TextureCPU
+from .scene.scene import (
+    InstanceCPU,
+    MeshCPU,
+    SceneCPU,
+    TextureCPU,
+    get_scene_stats,
+    validate_scene,
+)
 from .scene.flatten import SceneTorch, build_scene_torch, scene_from_numpy
 from .render.renderer import (
     new_accumulation_buffer,
     pathtrace_scene,
+    pathtrace_scene_debug,
+    pathtrace_scene_falsecolor,
     render_progressive,
 )
 from .render.tonemap import TonemapDesc, tonemap, tonemap_and_fit_aspect
+from .denoise.atrous import DenoiseDesc, denoise
 
 __all__ = [
     "AccumulationParams", "AdvancedParams", "BakedPathtraceParams",
-    "CameraParams", "Environment", "InstanceCPU", "Material", "MaterialType",
-    "MeshCPU", "PathtraceDesc", "PathtraceType", "SceneCPU", "SceneCamera",
-    "SceneTorch", "TextureCPU", "TileParams", "TonemapDesc",
-    "build_scene_torch", "get_num_tiles", "new_accumulation_buffer",
-    "pathtrace_scene", "render_progressive", "scene_from_numpy", "tonemap",
-    "tonemap_and_fit_aspect",
+    "CameraParams", "DenoiseDesc", "Environment", "FalsecolorType",
+    "InstanceCPU", "Material", "MaterialType", "MeshCPU", "PathtraceDesc",
+    "PathtraceType", "SceneCPU", "SceneCamera", "SceneTorch", "TextureCPU",
+    "TileParams", "TonemapDesc", "build_scene_torch", "denoise",
+    "get_num_tiles", "get_scene_stats", "new_accumulation_buffer",
+    "pathtrace_scene", "pathtrace_scene_debug", "pathtrace_scene_falsecolor",
+    "render_progressive", "scene_from_numpy", "tonemap",
+    "tonemap_and_fit_aspect", "validate_scene",
 ]

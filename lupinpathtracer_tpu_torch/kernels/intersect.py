@@ -210,12 +210,15 @@ def _ray_aabb_dst(ro: V3, inv_d: V3, lo: V3, hi: V3):
     return torch.where(did_hit, dst_near, F32_MAX)
 
 
-def closest_hit_bvh(scene, ro: V3, rd: V3, eps) -> HitInfo:
+def closest_hit_bvh(scene, ro: V3, rd: V3, eps, with_counts: bool = False):
     """The JAX package's masked wavefront walk of the binary world BVH
     (intersect.py:323-441; bvh_custom.wgsl:246-284): every live lane
     advances one node per step, leaves test a fixed block of bvh_leaf_size
     triangles, internal nodes push near child last with best-t pruning.
-    Backside is det > 0 without the det-sign fixup, as in the JAX walk."""
+    Backside is det > 0 without the det-sign fixup, as in the JAX walk.
+    `with_counts` also returns each ray's (n_tri, n_aabb): the triangles
+    its leaves tested and two slab tests per internal node
+    (RAY_DEBUG_INFO, pathtracer.wgsl:2945-2951)."""
 
     B = ro.x.shape[0]
     dev = ro.x.device
@@ -230,6 +233,8 @@ def closest_hit_bvh(scene, ro: V3, rd: V3, eps) -> HitInfo:
     best_u, best_v, best_det = (torch.zeros(B, dtype=torch.float32, device=dev)
                                 for _ in range(3))
     best_tri = torch.zeros(B, dtype=torch.int32, device=dev)
+    n_tri = torch.zeros(B, dtype=torch.int32, device=dev)
+    n_aabb = torch.zeros(B, dtype=torch.int32, device=dev)
     while bool((sp > 0).any()):
         active = sp > 0
         sp = torch.where(active, sp - 1, 0)
@@ -266,8 +271,35 @@ def closest_hit_bvh(scene, ro: V3, rd: V3, eps) -> HitInfo:
         sp = sp + push_far.to(torch.int32)
         stack = bk._put_row(stack, sp, near, push_near)
         sp = sp + push_near.to(torch.int32)
-    return HitInfo(hit=best_t < F32_MAX, dst=best_t, u=best_u, v=best_v,
-                   tri=best_tri, backside=best_det > 0.0)
+        n_tri = n_tri + torch.where(is_leaf, count.clamp(max=K), 0).to(torch.int32)
+        n_aabb = n_aabb + torch.where(is_int, 2, 0).to(torch.int32)
+    h = HitInfo(hit=best_t < F32_MAX, dst=best_t, u=best_u, v=best_v,
+                tri=best_tri, backside=best_det > 0.0)
+    return (h, (n_tri, n_aabb)) if with_counts else h
+
+
+def count_traversal(scene, ro: V3, rd: V3, eps):
+    """Per-ray (tri, AABB) test counts of one closest-hit query, the debug
+    heatmaps' data (intersect.py:519-542). BVH scenes with superleaves
+    (every scene the port builds) count the wavefront's tests, B5's slab
+    tests and B6's triangles, as the JAX package does on its device; the
+    stack walk's counts (closest_hit_bvh) serve a BVH scene without
+    superleaves. Dense scenes test every triangle; a scene without
+    instances tests nothing."""
+
+    B, dev = ro.x.shape[0], ro.x.device
+    if scene.instances_empty:
+        z = torch.zeros(B, dtype=torch.int32, device=dev)
+        return z, z
+    if scene.use_bvh:
+        if scene.two_level or scene.sl_count > 0:
+            _, counts = closest_hit_wavefront(scene, ro, rd, eps,
+                                              with_counts=True)
+        else:
+            _, counts = closest_hit_bvh(scene, ro, rd, eps, with_counts=True)
+        return counts
+    return (torch.full((B,), scene.num_world_tris, dtype=torch.int32, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev))
 
 
 def closest_hit_brute_two_level(scene, ro: V3, rd: V3, eps, W,
@@ -391,20 +423,24 @@ def _pad(x, n, fill):
 
 
 def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
-                          coherent: bool = True) -> HitInfo:
+                          coherent: bool = True, with_counts: bool = False):
     """Closest hit of a BVH scene, single- or two-level
     (intersect.py:581-747): kernel B4 for coherent batches; otherwise rounds
     of B5 top traversal -> superleaf sort -> B6 pair intersection -> un-sort
     -> per-ray min until every stack drains, full-batch rounds while more
     than WF_TAIL_C lanes are pending, then rounds over the compacted
     stragglers. Inactive lanes skip traversal (a miss). No det-sign backside
-    fixup here."""
+    fixup here.
+
+    `with_counts` (the debug heatmaps) skips B4 and also returns each ray's
+    (n_tri, n_aabb): the triangles the pair kernel tested (its superleaf
+    visits times the stride) and B5's top-tree slab tests."""
 
     B = ro.x.shape[0]
     dev = ro.x.device
     SP = scene.sl_stride
     W = _wavefront_tri_matrix(scene, W)
-    if _use_packet(scene, coherent):
+    if not with_counts and _use_packet(scene, coherent):
         t, u, v, det, tri = packet.packet_traverse(scene, ro, rd, eps, W,
                                                    active=active)
         return HitInfo(hit=t < F32_MAX, dst=t, u=u, v=v,
@@ -426,8 +462,12 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
         t, u, v, det, li = bk.pair_intersect(
             blk, msl_k, blk * PB, blk * PB + PB, rop, rdp, W, eps, SP=SP,
             pair_block=PB, inst=inst_k, txf_tab=txf_tab)
-        return HitInfo(hit=t[:B] < F32_MAX, dst=t[:B], u=u[:B], v=v[:B],
-                       tri=li[:B], backside=det[:B] > 0.0)
+        h = HitInfo(hit=t[:B] < F32_MAX, dst=t[:B], u=u[:B], v=v[:B],
+                    tri=li[:B], backside=det[:B] > 0.0)
+        if with_counts:
+            return h, (torch.full((B,), SP, dtype=torch.int32, device=dev),
+                       torch.zeros(B, dtype=torch.int32, device=dev))
+        return h
 
     S = bk.stack_depth(scene)
     Q_main = WF_Q if coherent else WF_Q_DIVERGENT
@@ -444,6 +484,9 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
         best_det=torch.zeros(Bp, dtype=torch.float32, device=dev),
         best_tri=torch.zeros(Bp, dtype=torch.int32, device=dev),
     )
+    if with_counts:
+        c["n_tri"] = torch.zeros(Bp, dtype=torch.int32, device=dev)
+        c["n_aabb"] = torch.zeros(Bp, dtype=torch.int32, device=dev)
 
     def round_(cc, o, d, Q):
         return _wf_round(scene, W, tab, eps, o, d, cc, S=S, PB=PB, Q=Q)
@@ -480,9 +523,12 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
         c = out
 
     t = c["best_t"][:B]
-    return HitInfo(hit=t < F32_MAX, dst=t, u=c["best_u"][:B],
-                   v=c["best_v"][:B], tri=c["best_tri"][:B].clamp_min(0),
-                   backside=c["best_det"][:B] > 0.0)
+    h = HitInfo(hit=t < F32_MAX, dst=t, u=c["best_u"][:B],
+                v=c["best_v"][:B], tri=c["best_tri"][:B].clamp_min(0),
+                backside=c["best_det"][:B] > 0.0)
+    if with_counts:
+        return h, (c["n_tri"][:B], c["n_aabb"][:B])
+    return h
 
 
 def _wf_work_items(skey, n_sl, PB, cnt_sl=None):
@@ -531,8 +577,8 @@ def _wf_pairs(scene, tab, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     """The first half of a wavefront round: B5 top traversal, then the
     (Q, Bp) emits grouped by superleaf (stable sort) and cut into work
     items. Returns B6's arguments ahead of (W, eps) and its keywords, the
-    sorted keys, the sort order, n_real and B5's (stack, sp). Two-level
-    scenes pass B6 each item's mesh superleaf and instance."""
+    sorted keys, the sort order, n_real and B5's (stack, sp, cnt, aabb).
+    Two-level scenes pass B6 each item's mesh superleaf and instance."""
 
     Bp = rop.x.shape[0]
     n_sl = scene.sl_count
@@ -549,19 +595,22 @@ def _wf_pairs(scene, tab, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     args = (blk, msl_k, lo, hi, s_ro, s_rd)
     kw = dict(SP=scene.sl_stride, pair_block=PB, n_items=n_items, inst=inst_k,
               txf_tab=txf_tab)
-    return args, kw, skey, order, n_real, stack, sp
+    return args, kw, skey, order, n_real, stack, sp, cnt, aabb
 
 
 def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     """One wavefront round over Bp lanes (intersect.py:994-1103): B5 top
     traversal -> group the (Q, Bp) emits by superleaf (stable sort) -> B6 ->
-    un-sort -> per-ray min with a strict < (the incumbent keeps ties)."""
+    un-sort -> per-ray min with a strict < (the incumbent keeps ties).
+    With the count keys in `c`, adds the round's tests to them
+    (intersect.py:1098-1102): every emitted superleaf visit tests the full
+    stride of triangles."""
 
     Bp = rop.x.shape[0]
     SP = scene.sl_stride
     n_sl = scene.sl_count
     QB = Q * Bp
-    args, kw, skey, order, n_real, stack, sp = _wf_pairs(
+    args, kw, skey, order, n_real, stack, sp, cnt, aabb = _wf_pairs(
         scene, tab, rop, rdp, c, S=S, PB=PB, Q=Q)
     t, u, v, det, ltri = bk.pair_intersect(*args, W, eps, **kw)
     t = torch.where(torch.arange(QB, device=t.device) < n_real, t, F32_MAX)
@@ -584,6 +633,9 @@ def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     for k, x in (("best_t", t_m), ("best_u", u_m), ("best_v", v_m),
                  ("best_det", det_m), ("best_tri", tri_m)):
         out[k] = torch.where(wn, x, c[k])
+    if "n_tri" in c:
+        out["n_tri"] = c["n_tri"] + cnt * SP
+        out["n_aabb"] = c["n_aabb"] + aabb
     return out
 
 

@@ -726,3 +726,9 @@ def eval_scattering(vol_density, vol_scattering, vol_aniso, outgoing, incoming) 
 def sample_scattering_pdf(vol_density, vol_aniso, outgoing, incoming):
     cosine = -v3.dot(outgoing, incoming)
     return torch.where(v3.all_zero(vol_density), 0.0, _hg_phase(vol_aniso, cosine))
+
+
+def mis_heuristic(this_pdf, other_pdf):
+    """Power-2 heuristic (pathtracer.wgsl:935-938)."""
+
+    return (this_pdf * this_pdf) / (this_pdf * this_pdf + other_pdf * other_pdf)

@@ -1,39 +1,46 @@
-"""Render dispatch API: progressive path tracing with accumulation and tiling.
+"""Render dispatch API: pathtrace / falsecolor / debug with progressive
+accumulation and tiling.
 
-The counterpart of the pathtrace half of lupinpathtracer_tpu/render/renderer.py
-(the reference's pathtrace_scene, renderer.rs:768-842; the progressive blend,
-pathtracer.wgsl:279-288). A dispatch renders one tile (or the whole frame)
-as one flat ray batch. Scenes that pass the megakernel gate run through
-kernel B3 (kernels/mega.py); the rest through the wavefront loop
-(render/integrators.py): dense scenes with kernel B2, BVH scenes,
-single-level and two-level (instanced), with kernels B4 (camera rays) and
-B5/B6/B7 (bounces).
+The counterpart of lupinpathtracer_tpu/render/renderer.py (the reference's
+pathtrace_scene, _falsecolor and _debug, renderer.rs:768-1040; the
+progressive blend, pathtracer.wgsl:279-288). A dispatch renders one tile
+(or the whole frame) as one flat ray batch. Path tracing: scenes that pass
+the megakernel gate run through kernel B3 (kernels/mega.py); the rest
+(MIS always) through the wavefront loop (render/integrators.py): dense
+scenes with kernel B2, BVH scenes, single-level and two-level (instanced),
+with kernels B4 (camera rays) and B5/B6/B7 (bounces). The falsecolor AOVs
+trace camera rays (B2; B4, with B7 on two-level scenes); the debug
+heatmaps count a camera ray's traversal tests (B5/B6) or its bounces.
 
-Not ported yet, and raising NotImplementedError: the MIS integrator
-(ROADMAP.md Queue A item 5), the falsecolor and debug dispatches (item 10).
+Environment knobs, read at each dispatch as in the JAX package:
+LUPIN_SPP_STREAMS (concurrent sample streams per pixel on the wavefront
+route, integrators.pathtrace_spp; 1 unless it is >= 1 and divides spp),
+LUPIN_DISPATCH_RAY_STRIDE_BUDGET and LUPIN_DISPATCH_TILE_FLOOR (the
+self-bounding split of a BVH frame, pathtrace_scene).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import weakref
 
 import numpy as np
 import torch
 
+from ..core import rng as rng_mod
 from ..core import vec3 as v3
 from ..core.device import resolve_device
 from ..core.types import (
     BakedPathtraceParams,
+    FalsecolorType,
     PathtraceDesc,
     PathtraceType,
     get_num_tiles,
 )
-from ..kernels import mega
+from ..kernels import intersect, mega
 from . import integrators
-
-AOV_TODO = ("the falsecolor and debug dispatches are not ported yet: "
-            "ROADMAP.md Queue A item 10")
+from .materials import compute_shading_normal, get_material_point, is_mat_delta
 
 
 def _tile_geometry(image_shape, desc: PathtraceDesc):
@@ -138,9 +145,13 @@ def _render_pathtrace(scene, image, cam, origin_x, origin_y, accum_counter,
             ray_epsilon,
         )
     else:
+        streams = int(os.environ.get("LUPIN_SPP_STREAMS", "1"))
+        if streams < 1 or spp % streams:
+            streams = 1
         acc, n_traced = integrators.pathtrace_spp(
             scene, ctx, pixel_idx, gx, gy, resolution, cam, is_ortho,
             accum_counter, rng_seed, spp, ptype, max_bounces, max_radiance,
+            streams=streams,
         )
     if stats is not None:
         stats["rays"] = stats.get("rays", 0) + int(n_traced.sum())
@@ -180,10 +191,23 @@ def _runtime_checks(scene, baked: BakedPathtraceParams):
 _VALIDATED_SCENES: set = set()
 
 # Self-bounding dispatch (renderer.py:358-380): without explicit tiling, a
-# BVH frame whose rays x superleaf stride exceeds this budget is split into
-# square tiles (largest power of two from 1024 down to the floor).
+# BVH frame whose rays x superleaf stride exceeds the budget is split into
+# square tiles (largest power of two from 1024 down to the floor). The
+# defaults; LUPIN_DISPATCH_RAY_STRIDE_BUDGET and LUPIN_DISPATCH_TILE_FLOOR
+# override them at each dispatch.
 DISPATCH_RAY_STRIDE_BUDGET = 700_000_000
 DISPATCH_TILE_FLOOR = 128
+
+
+def _dispatch_setup(scene, image, desc: PathtraceDesc,
+                    baked: BakedPathtraceParams):
+    """What every dispatch does first: the device check, the runtime
+    checks and the backend choice. Returns (scene, tile size, origin)."""
+
+    if image.device != scene.device:
+        raise ValueError(f"image on {image.device}, scene on {scene.device}")
+    _runtime_checks(scene, baked)
+    return (_select_backend(scene, desc), *_tile_geometry(image.shape, desc))
 
 
 def _select_backend(scene, desc: PathtraceDesc):
@@ -205,13 +229,7 @@ def pathtrace_scene(scene, image, desc: PathtraceDesc,
     measurement hook (the JAX API has no such argument) and costs one
     device-to-host sync per dispatch, so leave it None otherwise."""
 
-    if int(desc.pathtrace_type) == int(PathtraceType.MIS):
-        raise NotImplementedError(integrators.MIS_TODO)
-    if image.device != scene.device:
-        raise ValueError(f"image on {image.device}, scene on {scene.device}")
-    _runtime_checks(scene, baked)
-    scene = _select_backend(scene, desc)
-    tile_wh, (tx, ty) = _tile_geometry(image.shape, desc)
+    scene, tile_wh, (tx, ty) = _dispatch_setup(scene, image, desc, baked)
 
     def one(tile_wh, tx, ty, image):
         return _render_pathtrace(
@@ -230,11 +248,14 @@ def pathtrace_scene(scene, image, desc: PathtraceDesc,
 
     if not desc.tile_params.enabled and scene.use_bvh and scene.sl_count:
         H, W = image.shape[:2]
+        budget = int(os.environ.get("LUPIN_DISPATCH_RAY_STRIDE_BUDGET",
+                                    DISPATCH_RAY_STRIDE_BUDGET))
         stride = max(int(scene.sl_stride), 1)
-        if W * H * stride > DISPATCH_RAY_STRIDE_BUDGET:
+        if W * H * stride > budget:
             ts = 1024
-            while (ts > DISPATCH_TILE_FLOOR
-                   and ts * ts * stride > DISPATCH_RAY_STRIDE_BUDGET):
+            floor = int(os.environ.get("LUPIN_DISPATCH_TILE_FLOOR",
+                                       DISPATCH_TILE_FLOOR))
+            while ts > floor and ts * ts * stride > budget:
                 ts //= 2
             nx, ny = get_num_tiles(W, H, ts)
             for idx in range(nx * ny):
@@ -244,13 +265,235 @@ def pathtrace_scene(scene, image, desc: PathtraceDesc,
     return one(tile_wh, tx, ty, image)
 
 
-def pathtrace_scene_falsecolor(scene, image, desc, baked, falsecolor_type):
-    raise NotImplementedError(AOV_TODO)
+# ---------------------------------------------------------------------------
+# Falsecolor AOVs (renderer.py:390-563; renderer.rs:872-948,
+# pathtracer.wgsl:298-452)
+# ---------------------------------------------------------------------------
+
+# The AOVs that trace through the stochastic alpha skip (renderer.py:421).
+_ALPHA_SKIP_AOVS = (
+    FalsecolorType.ALBEDO, FalsecolorType.NORMALS,
+    FalsecolorType.NORMALS_UNSIGNED, FalsecolorType.FRONTFACING,
+    FalsecolorType.EMISSION, FalsecolorType.ROUGHNESS, FalsecolorType.METALLIC,
+)
+_MATERIAL_AOVS = (
+    FalsecolorType.ALBEDO, FalsecolorType.EMISSION, FalsecolorType.ROUGHNESS,
+    FalsecolorType.METALLIC, FalsecolorType.OPACITY, FalsecolorType.IS_DELTA,
+)
 
 
-def pathtrace_scene_debug(scene, image, desc, baked, mode="tri_checks",
-                          heatmap_min=0.0, heatmap_max=10.0):
-    raise NotImplementedError(AOV_TODO)
+def _id_of(scene, hit, kind: str):
+    """The debug AOVs' id of each hit ("mat", "inst" or "tri"). Two-level
+    scenes index the mesh-space soup through the global (instance x
+    superleaf) id; world-soup scenes read the per-triangle columns."""
+
+    tri = hit.tri.long()
+    if scene.two_level:
+        gsl = tri // scene.sl_stride
+        inst = scene.gsl_inst[gsl]
+        if kind == "inst":
+            return inst
+        if kind == "mat":
+            return scene.inst_mat[inst.long()]
+        mtri = scene.gsl_msl[gsl].long() * scene.sl_stride + tri % scene.sl_stride
+        return scene.wt_tri[mtri]
+    return {"mat": scene.wt_mat, "inst": scene.wt_inst, "tri": scene.wt_tri}[kind][tri]
+
+
+def _hash_color(idx) -> v3.V3:
+    """hash_color (pathtracer.wgsl:546-573): three sequential PCG words,
+    each converted to f32 with one rounding to nearest, over 4294967295.0
+    (2^32 in f32)."""
+
+    state = rng_mod.as_u32(idx)
+    outs = []
+    for _ in range(3):
+        state, w = rng_mod.next_u32(state)
+        outs.append(w.to(torch.float32) / 4294967295.0)
+    return v3.V3(*outs)
+
+
+def _falsecolor_sample(scene, ctx, ro, rd, state, fc_type: int):
+    """One AOV sample per lane (renderer.py:420-478); misses are black."""
+
+    B = ro.x.shape[0]
+    if fc_type in _ALPHA_SKIP_AOVS:
+        hit, attrs, state = integrators.ray_skip_alpha(
+            scene, ctx, ro, rd, state,
+            torch.ones(B, dtype=torch.bool, device=ro.x.device))
+    else:
+        hit, attrs = intersect.closest_hit_attrs(scene, ro, rd, ctx["eps"],
+                                                 W=ctx["W"])
+    if fc_type in _MATERIAL_AOVS:
+        mp = get_material_point(scene, hit, attrs)
+
+    def gray(s_):
+        return v3.V3(s_, s_, s_)
+
+    if fc_type == FalsecolorType.ALBEDO:
+        col = mp.color
+    elif fc_type == FalsecolorType.NORMALS:
+        col = compute_shading_normal(scene, hit, attrs)
+    elif fc_type == FalsecolorType.NORMALS_UNSIGNED:
+        col = compute_shading_normal(scene, hit, attrs) * 0.5 + 0.5
+    elif fc_type == FalsecolorType.FRONTFACING:
+        col = gray((~hit.backside).to(torch.float32))
+    elif fc_type == FalsecolorType.EMISSION:
+        col = mp.emission
+    elif fc_type == FalsecolorType.ROUGHNESS:
+        col = gray(mp.roughness)
+    elif fc_type == FalsecolorType.METALLIC:
+        col = gray(mp.metallic)
+    elif fc_type == FalsecolorType.OPACITY:
+        col = gray(mp.opacity)
+    elif fc_type == FalsecolorType.MAT_TYPE:
+        col = _hash_color(_id_of(scene, hit, "mat"))
+    elif fc_type == FalsecolorType.IS_DELTA:
+        col = gray(is_mat_delta(mp).to(torch.float32))
+    elif fc_type == FalsecolorType.INSTANCE:
+        col = _hash_color(_id_of(scene, hit, "inst"))
+    elif fc_type == FalsecolorType.TRI:
+        col = _hash_color(_id_of(scene, hit, "tri"))
+    else:
+        col = 0.0
+    return v3.where(hit.hit, col, 0.0), state
+
+
+def _camera_rays(gx, gy, W, H, cam, is_ortho, state):
+    """(state, ro, rd) of one jittered camera ray per lane."""
+
+    return integrators._camera_ray_from(
+        dict(cam=cam, is_ortho=is_ortho, gx=gx, gy=gy,
+             resolution=(float(W), float(H))), state)
+
+
+def _render_falsecolor(scene, image, cam, origin_x, origin_y, accum_counter,
+                       rng_seed, ray_epsilon, tile_wh, spp, fc_type, is_ortho,
+                       accumulate):
+    """spp AOV samples of a tile, sample s from init_state(pixel, accum,
+    seed, s) (renderer.py:486-535)."""
+
+    H, W = image.shape[:2]
+    tw, th = tile_wh
+    gx, gy = _pixel_batch(tw, th, origin_x, origin_y, image.device)
+    pixel_idx = gy * W + gx
+    ctx = integrators.make_ctx(scene, ray_epsilon)
+    acc = v3.zeros(tw * th, image.device)
+    for s in range(spp):
+        state = rng_mod.init_state(pixel_idx, accum_counter, rng_seed, s)
+        state, ro, rd = _camera_rays(gx, gy, W, H, cam, is_ortho, state)
+        col, _ = _falsecolor_sample(scene, ctx, ro, rd, state, fc_type)
+        acc = acc + col
+    color = v3.to_rows(acc / float(spp))
+    return _accumulate_and_store(image, color, gx, gy, accum_counter,
+                                 accumulate, full_frame=(tw, th) == (W, H))
+
+
+def pathtrace_scene_falsecolor(scene, image, desc: PathtraceDesc,
+                               baked: BakedPathtraceParams,
+                               falsecolor_type: FalsecolorType):
+    """Renders spp samples of one AOV into `image` (renderer.rs:872-948)
+    and returns the new image."""
+
+    scene, tile_wh, (tx, ty) = _dispatch_setup(scene, image, desc, baked)
+    return _render_falsecolor(
+        scene, image, _camera_args(desc), tx, ty,
+        int(desc.accum_params.counter), int(desc.advanced.rng_seed),
+        float(np.float32(desc.advanced.ray_epsilon)), tile_wh=tile_wh,
+        spp=int(baked.samples_per_pixel), fc_type=int(falsecolor_type),
+        is_ortho=bool(desc.camera_params.is_orthographic),
+        accumulate=bool(desc.accum_params.accumulate),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Debug heatmaps (renderer.py:571-722; renderer.rs:966-1040,
+# pathtracer.wgsl:457-502, :2806-2874)
+# ---------------------------------------------------------------------------
+
+
+def _select(conds, choices, default):
+    """jnp.select: the choice of the first true condition, else default."""
+
+    out = default
+    for c, v in reversed(list(zip(conds, choices))):
+        out = torch.where(c, v, out)
+    return out
+
+
+def get_heatmap_color(val, lo, hi):
+    """Wavelength heatmap (pathtracer.wgsl:2806-2874) of (B,) values over
+    [lo, hi]; returns (B, 3). lo and hi are taken as float32."""
+
+    lo = torch.tensor(np.float32(lo), device=val.device)
+    hi = torch.tensor(np.float32(hi), device=val.device)
+    wl = 380.0 + 370.0 * torch.clamp_min(val - lo, 0.0) / torch.clamp_min(
+        hi - lo, 1e-20)
+    z = torch.zeros_like(wl)
+    o = torch.ones_like(wl)
+    bands = [wl <= 380.0, wl <= 440.0, wl <= 490.0, wl <= 510.0, wl <= 580.0,
+             wl <= 645.0, wl <= 780.0]
+    r = _select(bands, [z, -(wl - 440.0) / 60.0 / 3.0, z, z,
+                        (wl - 510.0) / 70.0, o, o], o)
+    g = _select(bands, [z, z, (wl - 440.0) / 50.0, o, o,
+                        -(wl - 645.0) / 65.0, z], o)
+    b = _select(bands[:5], [z, 0.8 * o, o, -(wl - 510.0) / 20.0, z], z)
+    color = torch.stack([r, g, b], dim=-1)
+    factor = _select(
+        [wl < 420.0, wl < 701.0, wl < 781.0],
+        [0.3 + 0.7 * (wl - 380.0) / 40.0, o, 0.3 + 0.7 * (780.0 - wl) / 80.0],
+        o,
+    )
+    return torch.pow(torch.clamp_min(factor[..., None] * color, 0.0), 0.8)
+
+
+DEBUG_MODES = ("tri_checks", "aabb_checks", "bounces")
+
+
+def _render_debug(scene, image, cam, origin_x, origin_y, accum_counter,
+                  rng_seed, ray_epsilon, heatmap_min, heatmap_max, tile_wh,
+                  mode, max_bounces, is_ortho, accumulate):
+    """One camera ray per pixel and its heatmap (renderer.py:629-689):
+    the tri or AABB tests of its closest-hit query (count_traversal), or
+    the bounces of one STANDARD path without regeneration."""
+
+    if mode not in DEBUG_MODES:
+        raise ValueError(f"debug mode {mode!r} is not one of {DEBUG_MODES}")
+    H, W = image.shape[:2]
+    tw, th = tile_wh
+    gx, gy = _pixel_batch(tw, th, origin_x, origin_y, image.device)
+    pixel_idx = gy * W + gx
+    ctx = integrators.make_ctx(scene, ray_epsilon)
+    state = rng_mod.init_state(pixel_idx, accum_counter, rng_seed, 0)
+    state, ro, rd = _camera_rays(gx, gy, W, H, cam, is_ortho, state)
+    if mode == "bounces":
+        _, _, n_bounces, _ = integrators.pathtrace(
+            scene, ctx, ro, rd, state, int(PathtraceType.STANDARD), max_bounces)
+        val = n_bounces
+    else:
+        tri_checks, aabb_checks = intersect.count_traversal(
+            scene, ro, rd, ray_epsilon)
+        val = tri_checks if mode == "tri_checks" else aabb_checks
+    color = get_heatmap_color(val.to(torch.float32), heatmap_min, heatmap_max)
+    return _accumulate_and_store(image, color, gx, gy, accum_counter,
+                                 accumulate, full_frame=(tw, th) == (W, H))
+
+
+def pathtrace_scene_debug(scene, image, desc: PathtraceDesc,
+                          baked: BakedPathtraceParams, mode: str = "tri_checks",
+                          heatmap_min: float = 0.0, heatmap_max: float = 10.0):
+    """Renders a debug heatmap ("tri_checks", "aabb_checks" or "bounces")
+    into `image` (renderer.rs:966-1040) and returns the new image."""
+
+    scene, tile_wh, (tx, ty) = _dispatch_setup(scene, image, desc, baked)
+    return _render_debug(
+        scene, image, _camera_args(desc), tx, ty,
+        int(desc.accum_params.counter), int(desc.advanced.rng_seed),
+        float(np.float32(desc.advanced.ray_epsilon)), heatmap_min, heatmap_max,
+        tile_wh=tile_wh, mode=mode, max_bounces=int(baked.max_bounces),
+        is_ortho=bool(desc.camera_params.is_orthographic),
+        accumulate=bool(desc.accum_params.accumulate),
+    )
 
 
 def new_accumulation_buffer(width: int, height: int, device="cuda"):

@@ -246,7 +246,7 @@ def round1_state(scene, ro: V3, rd: V3, Q: int = intersect.WF_Q):
     c = dict(stack=torch.zeros((S, Bp), dtype=torch.int32, device=dev),
              sp=(torch.arange(Bp, device=dev) < B).to(torch.int32),
              best_t=torch.full((Bp,), F32_MAX, dtype=torch.float32, device=dev))
-    args, kw, skey, order, n_real, _, _ = intersect._wf_pairs(
+    args, kw, skey, order, n_real, *_ = intersect._wf_pairs(
         scene, scene.top_tab, rop, rdp, c, S=S,
         PB=intersect.WF_PAIR_BLOCK, Q=Q)
     return args, kw, dict(skey=skey, order=order, n_real=n_real, lanes=Bp)
@@ -271,19 +271,23 @@ def time_variants(args, W, eps, kw, reps: int = 5) -> dict:
 
 
 def main_path_launches(scene, desc, width: int, height: int, spp: int,
-                       bounces: int, reps: int = 3) -> list:
-    """Every B6 launch of one accumulation of the BVH main path, recorded
-    and replayed: per launch its positions, pairs, items, tiles of 256
-    positions, the mean and largest mesh superleaves per tile, the split
+                       bounces: int, reps: int = 3, plain: bool = False,
+                       run=None) -> list:
+    """Every B6 launch of one accumulation of the BVH main path (or of
+    run()), recorded and replayed: per launch its positions, pairs, items,
+    distinct mesh superleaves, tiles of 256 positions, the mean and largest mesh superleaves per tile, the split
     the kernel takes (bvh.pair_split), and the device times of B6 and of
     V0 (its earlier design) on the same inputs (kernel_ms_each: the
     launches in a few profiler windows per kernel), which must agree bit
-    for bit. Needs a CUDA GPU."""
+    for bit. With `plain`, each launch is also held equal to
+    bvh.pair_intersect_plain, timed by CUDA events (plain_ms). Needs a
+    CUDA GPU."""
 
-    from .replay import one_accumulation, record_launches
+    from .replay import _events_ms, one_accumulation, record_launches
 
     rec = record_launches(bvh, "pair_intersect",
-                          one_accumulation(scene, desc, width, height, spp, bounces),
+                          run or one_accumulation(scene, desc, width, height, spp,
+                                                  bounces),
                           share=(6, "txf_tab"))
     real = bvh.pair_intersect
     b6 = kernel_ms_each([lambda a=a, k=k: real(*a, **k) for a, k in rec],
@@ -301,16 +305,25 @@ def main_path_launches(scene, desc, width: int, height: int, spp: int,
             tile * scene.msl_count + msl.long()[item[pos]]) // scene.msl_count)
         per_tile = per_tile[per_tile > 0].float()
         n_tiles = int(tile.max()) + 1 if pos.numel() else 0
+        got = real(*a, **k)
         if not all(torch.equal(x, y) for x, y in zip(
-                real(*a, **k), bvh.pair_intersect_variant("V0", *a, **k))):
+                got, bvh.pair_intersect_variant("V0", *a, **k))):
             raise AssertionError("B6 and V0 disagree on a main-path launch")
+        p_ms = None
+        if plain:
+            p_ms, p = _events_ms(lambda: bvh.pair_intersect_plain(*a, **k))
+            if not all(torch.equal(x, y) for x, y in zip(got, p)):
+                raise AssertionError("B6 and its plain version disagree on a "
+                                     "main-path launch")
         out.append(dict(
             positions=P, pairs=int(pos.numel()), items=int(k["n_items"]),
+            superleaves=int(torch.unique(msl[:int(k["n_items"])]).numel()),
             tiles=int(per_tile.numel()),
             superleaves_per_tile=float(per_tile.mean()) if per_tile.numel() else 0.0,
             superleaves_per_tile_max=int(per_tile.max()) if per_tile.numel() else 0,
             split_chunks=bvh.pair_split(k["SP"], n_tiles)[0], b6_ms=b6_ms,
-            v0_ms=v0_ms, timed_by=by6 if by6 == by0 else "events"))
+            v0_ms=v0_ms, plain_ms=p_ms,
+            timed_by=by6 if by6 == by0 else "events"))
     return out
 
 

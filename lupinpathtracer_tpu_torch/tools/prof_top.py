@@ -51,19 +51,21 @@ def max_abs_diff(k, p, S: int) -> float:
 
 
 def record_launches(scene, desc, width: int, height: int, spp: int,
-                    bounces: int) -> list:
+                    bounces: int, run=None) -> list:
     """[(tab, ro, rd, best_t, stack, sp, keywords)] of every B5 launch of one
-    accumulation of the main path, each with copies of its inputs (the
-    kernel updates its stack in place; tools/replay.record_launches)."""
+    accumulation of the main path (or of run(): a debug dispatch's counting
+    pass), each with copies of its inputs (the kernel updates its stack in
+    place; tools/replay.record_launches)."""
 
     rec = record_launches_of(bvh, "top_traverse",
-                             one_accumulation(scene, desc, width, height, spp, bounces),
+                             run or one_accumulation(scene, desc, width, height,
+                                                     spp, bounces),
                              share=(0,))
     return [(*a, k) for a, k in rec]
 
 
 def main_path_launches(scene, desc, width: int, height: int, spp: int,
-                       bounces: int, reps: int = 3) -> list:
+                       bounces: int, reps: int = 3, run=None) -> list:
     """Every B5 launch of one accumulation of the BVH main path, recorded
     and replayed: per launch its lanes, the lanes with a stack (live), Q,
     the histogram's length (0: none), the plain version's pops, pushes,
@@ -73,7 +75,7 @@ def main_path_launches(scene, desc, width: int, height: int, spp: int,
     events) and the largest difference between their outputs
     (max_abs_diff), which must be 0."""
 
-    rec = record_launches(scene, desc, width, height, spp, bounces)
+    rec = record_launches(scene, desc, width, height, spp, bounces, run)
     real = bvh.top_traverse
     timed = kernel_ms_each([lambda r=r: real(r[0], r[1], r[2], r[3], r[4].clone(),
                                              r[5], **r[6]) for r in rec],

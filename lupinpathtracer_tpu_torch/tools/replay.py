@@ -1,4 +1,4 @@
-"""Kernels B2 and B7 launch by launch on the card.
+"""Kernels B2, B4 and B7 launch by launch on the card.
 
     python3 -m lupinpathtracer_tpu_torch.tools.replay [--reps N] [--baseline DIR]
 
@@ -12,8 +12,9 @@ of each BVH main path, terrain2M and instanced100k at 512x288 x 4 spp x 8
 bounces. Each launch is replayed through the kernel and its plain version
 and every output must be equal (torch.equal); the kernel's device time per
 launch comes from tools/prof_pair.kernel_ms_each, the plain version's from
-CUDA events. chip_smoke.py calls b2_launches and b7_launches and adds each
-launch's bound.
+CUDA events. chip_smoke.py calls b2_launches and b7_launches, and
+b4_launches, on its main paths and on falsecolor dispatches (their `run`),
+and adds each launch's bound.
 
 Run as a program, with --baseline naming a checkout of an earlier commit,
 it also builds that checkout's csrc/dense_intersect.cu and csrc/bvh.cu into
@@ -120,16 +121,18 @@ def _timed(calls, kernel, reps, baseline_calls=None):
 
 
 def b2_launches(scene, desc, width: int, height: int, spp: int, bounces: int,
-                reps: int = 3, baseline=None) -> list:
+                reps: int = 3, baseline=None, run=None) -> list:
     """Every B2 launch of one accumulation of the dense wavefront (desc's
-    integrator), recorded and replayed: per launch its rays, triangles,
-    attribute columns and hits, the kernel's device ms, the plain
-    version's ms and, with `baseline` (a loaded build of an earlier
-    dense_intersect.cu), the earlier design's ms. Raises unless every
-    output equals the plain version's (and the earlier design's)."""
+    integrator), or of run() where given (a falsecolor dispatch), recorded
+    and replayed: per launch its rays, triangles, attribute columns and
+    hits, the kernel's device ms, the plain version's ms and, with
+    `baseline` (a loaded build of an earlier dense_intersect.cu), the
+    earlier design's ms. Raises unless every output equals the plain
+    version's (and the earlier design's)."""
 
     rec = record_launches(dk, "dense_closest_hit_attrs",
-                          one_accumulation(scene, desc, width, height, spp, bounces),
+                          run or one_accumulation(scene, desc, width, height, spp,
+                                                  bounces),
                           share=(0, 1))
     real = dk.dense_closest_hit_attrs
     calls = [lambda a=a: real(*a) for a, _ in rec]
@@ -157,9 +160,9 @@ def b2_launches(scene, desc, width: int, height: int, spp: int, bounces: int,
 
 
 def b7_launches(scene, desc, width: int, height: int, spp: int, bounces: int,
-                reps: int = 3, baseline=None) -> list:
-    """Every B7 launch of one accumulation of the BVH main path, recorded
-    and replayed: per launch its sorted positions, the covered ones (the
+                reps: int = 3, baseline=None, run=None) -> list:
+    """Every B7 launch of one accumulation of the BVH main path (or of
+    run()), recorded and replayed: per launch its sorted positions, the covered ones (the
     winners), the items, the tiles of ATTR_TILE positions holding a winner,
     the distinct instances of the covering items (0 without the instance
     word), whether it writes the tangent rows, the kernel's device ms, the
@@ -168,7 +171,8 @@ def b7_launches(scene, desc, width: int, height: int, spp: int, bounces: int,
     the plain version's (and the earlier design's)."""
 
     rec = record_launches(bvh, "attr_fetch",
-                          one_accumulation(scene, desc, width, height, spp, bounces),
+                          run or one_accumulation(scene, desc, width, height, spp,
+                                                  bounces),
                           share=(7, "nrm_tab", "ovr_tab"))
     real = bvh.attr_fetch
     calls = [lambda a=a, k=k: real(*a, **k) for a, k in rec]
@@ -192,19 +196,55 @@ def b7_launches(scene, desc, width: int, height: int, spp: int, bounces: int,
     return out
 
 
+def b4_launches(scene, run, reps: int = 3) -> list:
+    """Every B4 launch of run() (kernels/packet.py::packet_traverse),
+    recorded and replayed: per launch its rays, hits, whether it writes
+    attribute rows, the work the plain version counts for a bound
+    (packet_traverse_plain's `counts`), the kernel's device ms and the
+    plain version's ms. Raises unless every output equals the plain
+    version's."""
+
+    from ..kernels import packet
+
+    rec = record_launches(packet, "packet_traverse", run, share=(0, 4))
+    real = packet.packet_traverse
+    calls = [lambda a=a, k=k: real(*a, **k) for a, k in rec]
+    timed = _timed(calls, "packet_kernel", reps)
+    out = []
+    for i, (a, kw) in enumerate(rec):
+        k = calls[i]()
+        counts: dict = {}
+        p_ms, p = _events_ms(lambda: packet.packet_traverse_plain(
+            *a, **kw, counts=counts))
+        if not _equal(k, p):
+            raise AssertionError("B4 and its plain version disagree on a "
+                                 "recorded launch")
+        ms, _, by = timed[i]
+        out.append(dict(rays=int(a[1].x.shape[0]),
+                        hits=int((k[0] < dk.F32_MAX).sum()),
+                        attr_rows=int(k[5].shape[0]) if len(k) > 5 else 0,
+                        counts=counts, ms=ms, plain_ms=p_ms, timed_by=by))
+    return out
+
+
 def attr_work(args, kw) -> dict:
     """What one B7 launch (bvh.attr_fetch's arguments) covers: its sorted
-    positions, the covered ones (the winners), the items, the tiles of
-    ATTR_TILE positions holding a winner, the distinct instances of the
-    covering items (0 without the instance word) and whether it writes
-    the tangent rows."""
+    positions, the covered ones (the winners), the distinct attribute rows
+    they read (mesh superleaf x stride + local triangle), the items, the
+    tiles of ATTR_TILE positions holding a winner, the distinct instances
+    of the covering items (0 without the instance word) and whether it
+    writes the tangent rows."""
 
-    blk, _, lo, hi, li = args[:5]
+    blk, msl, lo, hi, li = args[:5]
+    SP = int(args[7].shape[1])
     P = int(li.shape[0])
     item = bvh.pair_item_map(blk, lo, hi, kw["n_items"], kw["pair_block"], P)
     pos = torch.nonzero(item >= 0)[:, 0]
     inst = kw["inst"]
-    return dict(positions=P, winners=int(pos.numel()), items=int(kw["n_items"]),
+    rows = msl.long()[item[pos]] * SP + li.long()[pos]
+    return dict(positions=P, winners=int(pos.numel()),
+                distinct_rows=int(torch.unique(rows).numel()),
+                items=int(kw["n_items"]),
                 tiles=int(torch.unique(pos // bvh.ATTR_TILE).numel()),
                 instances=0 if inst is None else int(torch.unique(
                     inst.long()[item[pos]]).numel()),

@@ -29,7 +29,13 @@ closest_hit_brute_two_level. B1/B2 are also held on random soups of 36, 37,
 and without the sign pre-test) and on all-miss batches, and B7 on
 synthetic batches of 2,048 and 147,456 sorted positions (long segments;
 ~2 winners per superleaf), one item and no winner, with and without the
-instance word and the tangent rows."""
+instance word and the tangent rows. The rest of the render API on a dense
+box, a 20,000-triangle terrain and a 300-instance field: the MIS,
+falsecolor and debug dispatches on the card against the same dispatch on
+CPU tensors (>= 99% of pixels within 2e-3 and the mean within 1% for MIS,
+within 1e-4 for the AOVs and 1e-5 for the heatmaps), count_traversal equal
+to its plain version exactly, and sample streams K = 2 against K = 1 (the
+traced segments equal, acc within rtol 3e-6 / atol 1e-6)."""
 
 import numpy as np
 import pytest
@@ -665,3 +671,147 @@ def test_b7_matches_plain_on_card(cuda_device, case, two_level, tangents):
                                   args[4].shape[0])
     assert torch.equal(k, p)
     assert bool((k != 0).any()) == (hits > 0)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the render API: MIS, sample streams, AOVs, debug heatmaps
+# ---------------------------------------------------------------------------
+
+
+_SMALL_SCENES = {
+    "cornell": lambda: builtin.build_scene_cornell_box(),
+    "terrain": lambda: synthetic.build_scene_terrain(n_tris=20_000, seed=0),
+    "field": lambda: synthetic.build_scene_instanced_field(300, seed=0,
+                                                           tris_per_mesh=64),
+}
+
+
+@pytest.fixture(scope="module")
+def small_scenes():
+    """{name: (scene on the card, the same scene on the CPU, cameras)}: the
+    Cornell box (dense: B2), a 20,000-triangle terrain (B4-B7) and a
+    300-instance field (two-level)."""
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    out = {}
+    for name, make in _SMALL_SCENES.items():
+        scene, cams = make()
+        out[name] = (tl.build_scene_torch(scene, device=torch.device("cuda", 0)),
+                     tl.build_scene_torch(scene, device="cpu"), cams)
+    assert out["terrain"][0].use_bvh and out["field"][0].two_level
+    return out
+
+
+def _desc_of(cams, ptype):
+    desc = tl.PathtraceDesc()
+    desc.camera_transform = cams[0].transform
+    desc.camera_params = cams[0].params
+    desc.pathtrace_type = ptype
+    desc.advanced.max_radiance = 10.0
+    return desc
+
+
+def _image_close(card, cpu, atol, share=0.99, mean_rel=None):
+    card = card.cpu().numpy()
+    cpu = cpu.numpy()
+    assert np.isfinite(card).all()
+    assert (np.abs(card - cpu) <= atol).all(axis=-1).mean() >= share
+    if mean_rel is not None:
+        assert abs(card.mean() - cpu.mean()) <= mean_rel * cpu.mean()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_SMALL_SCENES))
+def test_mis_dispatch_matches_cpu_on_card(small_scenes, name):
+    """pathtrace_scene under MIS, 32x24, 2 spp, 4 bounces (B2 on the box;
+    B4, B5, B6 and B7 on the terrain and the field), on the card against
+    the same dispatch on CPU tensors: >= 99% of pixels within 2e-3 and the
+    mean within 1% (the plain versions' float math differs between the
+    card and the CPU in the last bits, and a ray that meets a tie may take
+    another path)."""
+
+    card, cpu, cams = small_scenes[name]
+    desc = _desc_of(cams, tl.PathtraceType.MIS)
+    baked = tl.BakedPathtraceParams(max_bounces=4, samples_per_pixel=2)
+    out = [tl.pathtrace_scene(s, tl.new_accumulation_buffer(32, 24, device=s.device),
+                              desc, baked) for s in (card, cpu)]
+    assert float(out[1].mean()) > 0
+    _image_close(*out, 2e-3, mean_rel=0.01)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_SMALL_SCENES))
+def test_falsecolor_dispatch_matches_cpu_on_card(small_scenes, name):
+    """Every FalsecolorType, 32x24, 1 spp (B2 on the box, B4 with
+    attributes on the terrain, B4 and B7 on the field), on the card against
+    the same dispatch on CPU tensors: >= 99% of pixels within 1e-4."""
+
+    card, cpu, cams = small_scenes[name]
+    desc = _desc_of(cams, tl.PathtraceType.STANDARD)
+    baked = tl.BakedPathtraceParams(samples_per_pixel=1)
+    for fc in tl.FalsecolorType:
+        out = [tl.pathtrace_scene_falsecolor(
+            s, tl.new_accumulation_buffer(32, 24, device=s.device), desc, baked, fc)
+            for s in (card, cpu)]
+        _image_close(*out, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(_SMALL_SCENES))
+def test_debug_dispatch_matches_cpu_on_card(small_scenes, name):
+    """The three debug heatmaps, 32x24 (count_traversal through B5/B6 on
+    the terrain and the field; the non-regenerating STANDARD loop), on the
+    card against the same dispatch on CPU tensors: >= 99% of pixels within
+    1e-5."""
+
+    card, cpu, cams = small_scenes[name]
+    desc = _desc_of(cams, tl.PathtraceType.STANDARD)
+    baked = tl.BakedPathtraceParams(max_bounces=4)
+    for mode in ("tri_checks", "aabb_checks", "bounces"):
+        out = [tl.pathtrace_scene_debug(
+            s, tl.new_accumulation_buffer(32, 24, device=s.device), desc, baked,
+            mode, heatmap_max=600.0 if mode == "tri_checks" else 40.0)
+            for s in (card, cpu)]
+        _image_close(*out, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["terrain", "field"])
+def test_count_traversal_matches_plain_on_card(small_scenes, name):
+    """count_traversal of the same 128x72 camera rays (made on the CPU)
+    through the kernels on the card and through their plain versions on
+    the CPU: equal exactly (B5 and B6 equal their plain versions, so every
+    round visits the same superleaves)."""
+
+    card, cpu, cams = small_scenes[name]
+    ro, rd = _camera_rays(cams, 128, 72, "cpu")
+    dev = card.device
+    got = intersect.count_traversal(card, V3(*(c.to(dev) for c in ro)),
+                                    V3(*(c.to(dev) for c in rd)), EPS)
+    ref = intersect.count_traversal(cpu, ro, rd, EPS)
+    assert int(ref[0].sum()) > 0 and int(ref[1].sum()) > 0
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_spp_streams_match_one_stream_on_card(small_scenes):
+    """pathtrace_spp on the field, 64x48, 4 spp, 4 bounces, STANDARD, with
+    streams K = 2 against K = 1 on the card: the sum of n_traced equal
+    exactly, acc within rtol 3e-6 / atol 1e-6 (each lane's walk does not
+    depend on its batch: B4's owner masks, B5's per-lane stack, B6 per
+    pair)."""
+
+    card, _, cams = small_scenes["field"]
+    desc = _desc_of(cams, tl.PathtraceType.STANDARD)
+    gx, gy = _pixel_batch(64, 48, 0, 0, card.device)
+    ctx = integrators.make_ctx(card, EPS)
+    runs = [integrators.pathtrace_spp(
+        card, ctx, gy * 64 + gx, gx, gy, (64.0, 48.0), _camera_args(desc), False,
+        0, 0, 4, int(tl.PathtraceType.STANDARD), 4, 10.0, streams=K)
+        for K in (1, 2)]
+    (acc1, nt1), (acc2, nt2) = runs
+    assert int(nt1.sum()) == int(nt2.sum()) > 64 * 48 * 4
+    for a, b in zip(acc2, acc1):
+        torch.testing.assert_close(a, b, rtol=3e-6, atol=1e-6)

@@ -2,7 +2,7 @@
 wavefront loop that is also kernel B3's plain version) against the JAX
 package's integrators.pathtrace_spp, and render_progressive against the
 pinned 32x32 Cornell golden and the JAX render; plus the entry points'
-device rule and the parts of the API the slice does not cover yet.
+device rule, and the paths that once raised (MIS, AOVs, heatmaps).
 
 Tolerances: n_traced equal exactly; acc at rtol 2e-4 / atol 2e-5, the
 tolerance tests/test_mega.py holds the Pallas megakernel to; the golden at
@@ -240,22 +240,27 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_uncovered_paths_raise():
+    """The paths that raised NotImplementedError until the whole render API
+    was ported (the name is kept from then) render, finite, on a dense and
+    a two-level scene: MIS, every falsecolor AOV and the three debug
+    heatmaps (tests/test_torch_mis.py and tests/test_torch_aov.py hold them
+    to the JAX package)."""
+
     scene = tl.build_scene_torch(cornell(tl, tbuiltin), device="cpu")
-    baked = tl.BakedPathtraceParams(max_bounces=2, samples_per_pixel=1)
-    img = tl.new_accumulation_buffer(8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 5"):
-        tl.pathtrace_scene(scene, img, _desc(tl, PT.MIS), baked)
-    # BVH scenes render: single-level ones (item 8) and two-level ones
-    # (item 9) alike.
-    desc = _desc(tl, PT.STANDARD)
-    desc.force_software_bvh = True
-    assert torch.isfinite(tl.pathtrace_scene(scene, img, desc, baked)).all()
     big = tl.build_scene_torch(grid_field(tl, tbuiltin), device="cpu")
     assert big.use_bvh and big.two_level
-    out = tl.pathtrace_scene(big, img, _desc(tl, PT.STANDARD), baked)
-    assert torch.isfinite(out).all() and float(out.mean()) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 5"):
-        tl.pathtrace_scene(big, img, _desc(tl, PT.MIS), baked)
-    for fn in (trenderer.pathtrace_scene_falsecolor, trenderer.pathtrace_scene_debug):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-            fn(scene, img, _desc(tl, PT.STANDARD), baked, 0)
+    baked = tl.BakedPathtraceParams(max_bounces=2, samples_per_pixel=1)
+    for sc in (scene, big):
+        img = tl.new_accumulation_buffer(8, 8, device="cpu")
+        out = tl.pathtrace_scene(sc, img, _desc(tl, PT.MIS), baked)
+        assert torch.isfinite(out).all() and float(out.mean()) > 0
+        for fc in tl.FalsecolorType:
+            out = tl.pathtrace_scene_falsecolor(sc, img, _desc(tl, PT.STANDARD),
+                                                baked, fc)
+            assert torch.isfinite(out).all()
+        for mode in trenderer.DEBUG_MODES:
+            out = tl.pathtrace_scene_debug(sc, img, _desc(tl, PT.STANDARD),
+                                           baked, mode)
+            assert torch.isfinite(out).all()
+            # The dense box tests no box: its aabb_checks heatmap is black.
+            assert (float(out.max()) > 0) == (mode != "aabb_checks" or sc is big)
