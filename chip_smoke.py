@@ -44,6 +44,23 @@ main paths through its entry points:
   the same call on CPU tensors; LUPIN_SPP_STREAMS K = 1, 2 and 4 on both
   BVH main paths (the traced segments equal to K = 1's, the image within
   rtol 3e-6 / atol 1e-6);
+- scene files, the apps and multi-device: terrain2M written as a Yocto
+  scene with a ~50 MB PLY (tools/scene_files.py) and rendered by the CLI
+  (apps/render_cli.py, 512x288, 4 spp, 8 bounces, 2 accumulations, .exr
+  out), the loaded scene equal to the in-memory one and the EXR equal to
+  the in-memory render rounded to half; a textured Cornell scene from
+  files (PNG color texture with alpha, normal map and emission texture
+  on the packed RGBA8 atlas, a .hdr environment through emission_tex) and
+  its variant with a 4,224-triangle UV sphere (the BVH route: B4's and
+  B7's tangent rows), 256², 4 spp, 8 bounces, STANDARD, MIS, ALBEDO and
+  NORMALS, a 32x32 tile against the same tile dispatched on CPU tensors,
+  every B2 launch of a dense accumulation and every B4 and B7 launch of a
+  BVH one replayed against its plain version; apps/golden_test.py on the
+  Cornell box from files (the reference's gate; a checkpoint written and
+  resumed), apps/check_kernels.py, parallel/sharding.py (tiles mode on
+  meshes of 1, 2 and 4 entries of the card, images identical; samples
+  mode; B3 with sample_offset 8 against its plain version) and
+  apps/viewer.py (a 2-frame orbit at 128 px);
 - B6 and the B6' ablation variants (tools/prof_pair.py of the port) in
   turns on the round-1 states of the terrain2M and instanced100k camera
   batches, with the share of B6's threads that hold a pair in each design.
@@ -86,6 +103,9 @@ XFORM_OPS = 33  # ray to mesh space: origin 9 products + 9 sums, direction 9 + 6
 LEAF_FRAME_OPS = XFORM_OPS + 9 + 3  # B4 per leaf visit: + o x d, 3 reciprocals
 ROTATE_OPS = 2 * 15 + 8  # B7 per winner: two rotations, gn's length and scale
 IA_ROWS, IA_ROWS_NM = 16, 24  # B7's output rows (kernels/bvh.py)
+# The launch replays' depth cut: every launch of one accumulation of 1 spp
+# (the main paths render 4 or 16 spp), which keeps the whole run near 420 s.
+REPLAY_SPP = 1
 
 
 _T0 = time.perf_counter()
@@ -410,8 +430,8 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     """Phases 7-10: the terrain build, B4-B7 against their plain versions at
     the BVH main path's shapes, the BVH main path, and the Cornell box on
     the BVH route against the golden. Returns the B4-B7 kernel entries,
-    the terrain's (scene, camera rays, W, eps) for the B6' phase and its
-    cameras."""
+    the terrain's (scene, camera rays, W, eps) for the B6' phase, its
+    cameras and its SceneCPU."""
 
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.core import rng as rng_mod
@@ -584,10 +604,11 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     emit("main_path_bvh_profile", accumulations=1, card=smi,
          device_busy_share_of_timed_wall=prof["device_busy_ms"] * 1e-3
          * timed_accums / wall, **prof)
-    b5_replay = emit_b5_launches(ts, desc, width, height, spp, bounces,
+    b5_replay = emit_b5_launches(ts, desc, width, height, REPLAY_SPP, bounces,
                                  f"terrain{n_tris}", smi)
-    emit_b6_launches(ts, desc, width, height, spp, bounces, f"terrain{n_tris}", smi)
-    b7_replay = emit_b7_launches(ts, desc, width, height, spp, bounces,
+    emit_b6_launches(ts, desc, width, height, REPLAY_SPP, bounces,
+                     f"terrain{n_tris}", smi)
+    b7_replay = emit_b7_launches(ts, desc, width, height, REPLAY_SPP, bounces,
                                  f"terrain{n_tris}", smi)
 
     # -- 10. the Cornell box on the BVH route (one superleaf: B6, B7) --------
@@ -623,7 +644,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
         entry("B7 attr_fetch (mean per main-path launch)", "bvh.cu",
               "lupinpathtracer_tpu/kernels/pallas_bvh.py:896",
               launches["attr_fetch"], *b7_replay),
-    ], (ts, ro, rd, W, eps), cams
+    ], (ts, ro, rd, W, eps), cams, terrain
 
 
 def emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi,
@@ -671,7 +692,7 @@ def replay_entry(runs, bnds, err=0.0):
 
 
 def emit_b2_launches(scene, desc, smi, width=512, height=512, spp=16, bounces=8,
-                     what="DIRECT", run=None):
+                     what="DIRECT", run=None, tag="cornell"):
     """B2 on every B2 launch of one accumulation of the Cornell wavefront
     (tools/replay.b2_launches; desc's integrator, named by `what`) or of
     run() (a falsecolor dispatch), each equal to its plain version on every
@@ -682,7 +703,7 @@ def emit_b2_launches(scene, desc, smi, width=512, height=512, spp=16, bounces=8,
 
     runs = replay.b2_launches(scene, desc, width, height, spp, bounces, run=run)
     bnds = [b2_bound(r["rays"], r["tris"], r["columns"]) for r in runs]
-    emit("b2_main_path_launches", scene="cornell", integrator=what, card=smi,
+    emit("b2_main_path_launches", scene=tag, integrator=what, card=smi,
          launches=len(runs), all_outputs_equal=True,
          ms=sum(r["ms"] for r in runs), plain_ms=sum(r["plain_ms"] for r in runs),
          bound_ms=sum(b[0] for b in bnds), bound_by=sorted({b[1] for b in bnds}),
@@ -705,7 +726,7 @@ def emit_b7_launches(ts, desc, width, height, spp, bounces, tag, smi,
     runs = replay.b7_launches(ts, desc, width, height, spp, bounces, run=run)
     bnds = [b7_bound(r, attr_row_bytes(r["tangents"])) for r in runs]
     emit("b7_main_path_launches", scene=tag, integrator=what, card=smi,
-         launches=len(runs),
+         launches=len(runs), tangent_rows=sorted({r["tangents"] for r in runs}),
          all_outputs_equal=True, ms=sum(r["ms"] for r in runs),
          plain_ms=sum(r["plain_ms"] for r in runs), bound_ms=sum(b[0] for b in bnds),
          bound_by=sorted({b[1] for b in bnds}),
@@ -993,11 +1014,11 @@ def instanced_phases(dev, smi, width=512, height=288, spp=4, bounces=8,
                  card=smi, device_busy_share_of_timed_wall=(
                      prof["device_busy_ms"] * 1e-3 * accums / wall), **prof)
             # B5's entry: the means over the replayed main-path launches.
-            meas["b5"] = emit_b5_launches(ts, desc, width, height, spp,
+            meas["b5"] = emit_b5_launches(ts, desc, width, height, REPLAY_SPP,
                                           bounces, tag, smi)
-            emit_b6_launches(ts, desc, width, height, spp, bounces, tag, smi)
-            meas["b7_replay"] = emit_b7_launches(ts, desc, width, height, spp,
-                                                 bounces, tag, smi)
+            emit_b6_launches(ts, desc, width, height, REPLAY_SPP, bounces, tag, smi)
+            meas["b7_replay"] = emit_b7_launches(ts, desc, width, height,
+                                                 REPLAY_SPP, bounces, tag, smi)
 
         kernels += [
             entry(f"B4 packet_traverse (two-level; {tag})",
@@ -1051,7 +1072,8 @@ def emit_b4_launches(ts, run, tag, smi, what):
                                  + (r["hits"] * row_b if r["attr_rows"] else 0),
                                  rows, ts.sl_sub.numel()))
     emit("b4_main_path_launches", scene=tag, integrator=what, card=smi,
-         launches=len(runs), all_outputs_equal=True, ms=sum(r["ms"] for r in runs),
+         launches=len(runs), attr_rows=sorted({r["attr_rows"] for r in runs}),
+         all_outputs_equal=True, ms=sum(r["ms"] for r in runs),
          plain_ms=sum(r["plain_ms"] for r in runs), bound_ms=sum(b[0] for b in bnds),
          bound_by=sorted({b[1] for b in bnds}),
          timed_by=sorted({r["timed_by"] for r in runs}),
@@ -1383,6 +1405,398 @@ def streams_phase(dev, smi, bvh_scenes, counters):
         os.environ.pop("LUPIN_SPP_STREAMS", None)
 
 
+# -- PR 8: scene files, the apps and multi-device (phases 19-24) -------------
+
+# Scene files are written here (gitignored) and removed at the end of the phases.
+SCENES_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke_scenes")
+TEXTURED_LAT = 33  # the UV sphere: 2 * 32 * 66 = 4,224 triangles (BVH route)
+TEXTURED_SIZE = 256  # the textured renders' width and height
+B3_SITE = "lupinpathtracer_tpu/kernels/pallas_mega.py:622"
+
+
+def _scene_cpu_equal(a, b, uv_atol):
+    """Meshes, instances, materials, environments of two SceneCPUs equal
+    (texcoords within uv_atol); returns the largest texcoord difference."""
+
+    uv_err = 0.0
+    assert len(a.meshes) == len(b.meshes) and len(a.instances) == len(b.instances)
+    for ma, mb in zip(a.meshes, b.meshes):
+        assert np.array_equal(ma.positions, mb.positions)
+        assert np.array_equal(np.asarray(ma.indices, np.int64),
+                              np.asarray(mb.indices, np.int64))
+        for f in ("normals", "colors", "texcoords"):
+            x, y = getattr(ma, f), getattr(mb, f)
+            assert (x is None) == (y is None), f
+            if x is None:
+                continue
+            if f == "texcoords":
+                uv_err = max(uv_err, float(np.abs(x - y).max()))
+                assert uv_err <= uv_atol, uv_err
+            else:
+                assert np.array_equal(x, y), f
+    for ia, ib in zip(a.instances, b.instances):
+        assert np.array_equal(ia.frame, ib.frame)
+        assert (ia.mesh_idx, ia.mat_idx) == (ib.mesh_idx, ib.mat_idx)
+    for xa, xb in zip(a.materials, b.materials):
+        for f in xa.__dataclass_fields__:
+            assert np.array_equal(np.asarray(getattr(xa, f)),
+                                  np.asarray(getattr(xb, f))), f
+    for ea, eb in zip(a.environments, b.environments):
+        assert np.array_equal(ea.transform, eb.transform)
+        assert np.array_equal(ea.emission, eb.emission)
+    return uv_err
+
+
+def files_terrain_phase(dev, smi, terrain, ts, cams, counters):
+    """Phase 19: terrain2M written as a Yocto scene with one ~60 MB PLY
+    (tools/scene_files.py), rendered by the CLI (apps/render_cli.py, on
+    the card) at the BVH main path's settings, 2 accumulations, .exr out.
+    The loaded scene equals the in-memory one (texcoords within 6e-8); the
+    EXR equals the in-memory render_progressive of the same scene, rounded
+    to half, on >= 99.9% of pixels, none off by more than one half ulp."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.apps import render_cli
+    from lupinpathtracer_tpu_torch.io import exr, yocto_json
+    from lupinpathtracer_tpu_torch.kernels import bvh, packet
+    from lupinpathtracer_tpu_torch.tools import scene_files
+
+    (w, h), spp, nb = API["bvh_wh"], API["bvh_spp"], API["bounces"]
+    t0 = time.perf_counter()
+    path = scene_files.write_scene_dir(SCENES_DIR, "terrain2M", terrain, cams)
+    write_s = time.perf_counter() - t0
+    ply_mb = os.path.getsize(os.path.join(SCENES_DIR, "terrain2M", "shapes",
+                                          "shape0.ply")) / 1e6
+    out = os.path.join(SCENES_DIR, "terrain2M.exr")
+    reset(*counters)
+    times = render_cli.main([path, "--width", str(w), "--height", str(h), "--spp",
+                             str(spp), "--bounces", str(nb), "--max-radiance", "10",
+                             "--accums", "2", "--out", out])
+    launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+    t0 = time.perf_counter()
+    loaded, lcams = yocto_json.load_scene_yoctogl_v24(path)
+    parse_s = time.perf_counter() - t0
+    uv_err = _scene_cpu_equal(terrain, loaded, 6e-8)
+    assert all(np.array_equal(a.transform, b.transform) for a, b in zip(cams, lcams))
+    desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=10.0)
+    ref = lt.render_progressive(ts, desc, lt.BakedPathtraceParams(
+        max_bounces=nb, samples_per_pixel=spp), w, h, 2, device=dev)
+    half = ref.astype(np.float16)
+    got = exr.read_exr(out)[..., :3]
+    ulp = np.spacing(np.abs(half)).astype(np.float32)
+    diff = np.abs(got - half.astype(np.float32))
+    equal_share = float((diff == 0).mean())
+    emit("files_terrain", tris=ts.num_world_tris, ply_mb=ply_mb, write_s=write_s,
+         cli_load_s=times["load_s"], load_again_s=parse_s,
+         build_scene_torch_s=times["build_s"],
+         s_per_accumulation=times["render_s"] / 2, launches=launches,
+         texcoord_max_abs_diff=uv_err, exr_equal_share=equal_share,
+         exr_max_diff_in_half_ulps=float((diff / ulp).max()),
+         image_mean=float(got.mean()), card=smi)
+    assert all(launches[k] > 0 for k in ("packet_traverse", "top_traverse",
+                                         "pair_intersect", "attr_fetch")), launches
+    assert equal_share >= 0.999 and bool((diff <= ulp).all())
+
+
+def files_textured_phase(dev, smi, counters):
+    """Phase 20: textures and an environment from files. The Cornell walls,
+    a quad with a 256² color texture (alpha < 1 on part of it), a normal
+    map and an emission texture (PNG: the packed RGBA8 atlas), a 512x256
+    .hdr environment through emission_tex; and a variant with a UV sphere
+    of 4,224 triangles with the normal-mapped material (the BVH route: B4's
+    and B7's tangent rows). Both at 256², 4 spp, 8 bounces under STANDARD
+    and MIS (1 warm-up, 1 timed accumulation), and ALBEDO and NORMALS
+    dispatches; a 32x32 tile over the alpha region dispatched on the card
+    against the same tile dispatched on CPU tensors (the same batch: the
+    alpha skip couples the lanes of a batch), >= 99% of pixels within 1e-4.
+    Every B2 launch of one dense accumulation and every B4 and B7 launch
+    of one BVH accumulation replayed against its plain version. Returns
+    the kernel entries."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.io import yocto_json
+    from lupinpathtracer_tpu_torch.kernels import bvh, mega, packet
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+    from lupinpathtracer_tpu_torch.tools import scene_files
+    from lupinpathtracer_tpu_torch.tools.replay import one_accumulation
+
+    size, spp, nb = TEXTURED_SIZE, 4, API["bounces"]
+    k_tile, tx, ty = 27, 96, 96  # tile (3, 3): about half its pixels see alpha
+    baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=spp)
+    kernels = []
+    for tag, lat in (("textured_dense", 0), ("textured_bvh", TEXTURED_LAT)):
+        t0 = time.perf_counter()
+        path = scene_files.write_scene_dir(SCENES_DIR, tag, *scene_files.textured_cornell(
+            tex_size=256, env_wh=(512, 256), sphere_lat=lat))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scene, cams = yocto_json.load_scene_yoctogl_v24(path)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ts = lt.build_scene_torch(scene, device=dev)
+        build_s = time.perf_counter() - t0
+        cpu = ts.to("cpu")
+        assert ts.mat_tex_ldr and ts.env_has_tex and ts.any_normal_maps and ts.has_alpha
+        assert ts.use_bvh == (lat > 0) and not mega.applicable(ts, 0)
+        emit("files_textured_scene", scene=tag, tris=ts.num_world_tris,
+             textures=len(scene.textures), write_s=write_s, load_s=load_s,
+             build_scene_torch_s=build_s, packed_rgba8_atlas=bool(ts.mat_tex_ldr),
+             textures_png=[t["uri"] for t in json.load(open(path))["textures"]],
+             card=smi)
+        for what in ("STANDARD", "MIS", "ALBEDO", "NORMALS"):
+            pt = (lt.PathtraceType[what] if what in ("STANDARD", "MIS")
+                  else lt.PathtraceType.STANDARD)
+            desc = cornell_desc(lt, cams, pt, max_radiance=10.0)
+
+            def dispatch(sc, d, device, what=what):
+                buf = lt.new_accumulation_buffer(size, size, device=device)
+                if what in ("STANDARD", "MIS"):
+                    return lt.pathtrace_scene(sc, buf, d, baked)
+                return lt.pathtrace_scene_falsecolor(
+                    sc, buf, d, lt.BakedPathtraceParams(samples_per_pixel=1),
+                    lt.FalsecolorType[what])
+
+            if what in ("STANDARD", "MIS"):
+                warm_s, wall, rays, img = timed_render(ts, desc, baked, size, size, 1,
+                                                       counters, dev)
+                ms = wall * 1e3
+            else:
+                dispatch(ts, desc, dev)
+                reset(*counters)
+                ms, img = dispatch_ms(lambda: dispatch(ts, desc, dev))
+                img = img.cpu().numpy()
+                warm_s, rays = None, None
+            launches = {**dk.LAUNCHES, **mega.LAUNCHES, **packet.LAUNCHES, **bvh.LAUNCHES}
+            if what == "STANDARD":
+                main_launches = launches  # the main path's run, for the kernels line
+            desc_t = cornell_desc(lt, cams, pt, max_radiance=10.0)
+            desc_t.tile_params = lt.TileParams(enabled=True, tile_idx=k_tile, tile_size=32)
+            desc_t.accum_params.accumulate = True
+            k = dispatch(ts, desc_t, dev)[ty:ty + 32, tx:tx + 32].cpu()
+            t0 = time.perf_counter()
+            p = dispatch(cpu, desc_t, "cpu")[ty:ty + 32, tx:tx + 32]
+            cpu_s = time.perf_counter() - t0
+            diff = (k - p).abs().amax(-1)
+            share = float((diff <= 1e-4).float().mean())
+            emit("files_textured", scene=tag, dispatch=what, width=size, height=size,
+                 spp=spp if what in ("STANDARD", "MIS") else 1, bounces=nb,
+                 ms=ms, warmup_s=warm_s, rays=rays,
+                 mrays_per_s=rays / ms * 1e-3 if rays else None, launches=launches,
+                 image_mean=float(img.mean()), tile_max_abs_diff_vs_cpu=float(diff.max()),
+                 tile_atol=1e-4, tile_share_within_atol=share, tile_cpu_s=cpu_s,
+                 card=smi)
+            assert np.isfinite(img).all() and img.mean() > 0 and share >= 0.99
+            assert launches["mega_pathtrace_spp"] == 0
+            if lat:
+                assert launches["packet_traverse"] > 0, launches
+            else:
+                assert launches["dense_closest_hit_attrs"] > 0, launches
+        desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=10.0)
+        run = one_accumulation(ts, desc, size, size, REPLAY_SPP, nb)
+        launches = main_launches
+        path_name = f"files_textured {tag} STANDARD"
+        if not lat:
+            kernels.append(entry(
+                "B2 dense_closest_hit_attrs (textured dense from files, mean per launch)",
+                "dense_intersect.cu", B2_SITE, launches["dense_closest_hit_attrs"],
+                *emit_b2_launches(ts, desc, smi, size, size, REPLAY_SPP, nb,
+                                  what="STANDARD", tag=tag),
+                launches_in=path_name))
+            continue
+        kernels += [
+            entry("B4 packet_traverse (textured BVH from files, tangent rows, mean per "
+                  "launch)",
+                  "packet.cu", B4_SITE, launches["packet_traverse"],
+                  *emit_b4_launches(ts, run, tag, smi, "STANDARD"),
+                  launches_in=path_name),
+            entry("B7 attr_fetch (textured BVH from files, tangent rows, mean per "
+                  "launch)", "bvh.cu", B7_SITE, launches["attr_fetch"],
+                  *emit_b7_launches(ts, desc, size, size, REPLAY_SPP, nb, tag, smi),
+                  launches_in=path_name),
+        ]
+        del cpu
+    return kernels
+
+
+def golden_files_phase(dev, smi, counters):
+    """Phase 21: apps/golden_test.py on the card, on the Cornell box written
+    as a scene dir whose render_cam0.hdr is tests/goldens/cornell_32_standard
+    .npy (io/hdr.py): 80 samples (8 accumulations of 10 spp) under the
+    reference's gate (max RGB distance <= 5.0); again with --ckpt (the tiled
+    path, which writes a checkpoint), and a third time, which resumes at the
+    last accumulation. B3 runs on a scene that came from files."""
+
+    import contextlib
+    import io as io_mod
+
+    from lupinpathtracer_tpu_torch.apps import golden_test
+    from lupinpathtracer_tpu_torch.io import builtin, hdr
+    from lupinpathtracer_tpu_torch.kernels import mega
+    from lupinpathtracer_tpu_torch.tools import scene_files
+
+    root = os.path.join(SCENES_DIR, "golden")
+    scene_files.write_scene_dir(root, "cornell", *builtin.build_scene_cornell_box())
+    hdr.write_hdr(os.path.join(root, "cornell", "render_cam0.hdr"), np.load(GOLDEN))
+    base = ["--scenes", root, "--scene", "cornell", "--samples", "80",
+            "--out_dir", os.path.join(SCENES_DIR, "golden_out")]
+    for run, extra in (("untiled", []), ("ckpt", ["--ckpt"]), ("resume", ["--ckpt"])):
+        reset(*counters)
+        text = io_mod.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            (res,) = golden_test.main(base + extra)
+        wall = time.perf_counter() - t0
+        lines = text.getvalue()
+        resumed = "resumed at accum 8/8" in lines
+        emit("golden_files", run=run, max_dist=res[3], ds4_rmse=res[4], ok=res[2],
+             epsilon=golden_test.EPSILON, wall_s=wall, resumed_at_last=resumed,
+             checkpoint_written="ckpt @ accum 8/8" in lines,
+             b3_launches=mega.LAUNCHES["mega_pathtrace_spp"], card=smi)
+        assert res[2] is True and res[3] <= golden_test.EPSILON
+        assert (mega.LAUNCHES["mega_pathtrace_spp"] > 0) == (run != "resume")
+        if run == "ckpt":
+            assert "ckpt @ accum 8/8" in lines and not resumed
+        assert resumed == (run == "resume"), lines
+
+
+def check_kernels_phase(smi):
+    """Phase 22: apps/check_kernels.main() on the card, every check OK."""
+
+    import contextlib
+    import io as io_mod
+
+    from lupinpathtracer_tpu_torch.apps import check_kernels
+
+    text = io_mod.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        check_kernels.main()
+    lines = [ln.strip() for ln in text.getvalue().splitlines() if ln.strip()]
+    emit("check_kernels", wall_s=time.perf_counter() - t0,
+         ok=[ln for ln in lines if ln.startswith("OK")],
+         failed=[ln for ln in lines if ln.startswith("FAIL")], card=smi)
+    assert lines[-1] == "all kernel checks passed", lines
+
+
+def sharding_phase(dev, smi, scene_c, cams_c, terrain_ts, terrain_cams, counters):
+    """Phase 23: parallel/sharding.py on meshes of 1, 2 and 4 entries of the
+    one card (entries time-share it): tiles mode on the Cornell box (B3)
+    and terrain2M at 512x288, 4 spp, 8 bounces, 1 accumulation, the images
+    identical across mesh sizes; samples mode on the Cornell box at n = 2
+    (B3 with sample_offset = i * spp); then B3 alone with sample_offset = 8
+    against its plain version at 64², 8 spp (B3's tolerance). Returns B3's
+    kernel entry for that mode."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
+    from lupinpathtracer_tpu_torch.parallel import sharding
+    from lupinpathtracer_tpu_torch.render import integrators
+    from lupinpathtracer_tpu_torch.render.renderer import _camera_args, _pixel_batch
+
+    (w, h), spp, nb = API["bvh_wh"], API["bvh_spp"], API["bounces"]
+    baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=spp)
+    for tag, ts, cams, maxr in (("cornell", scene_c, cams_c, 100.0),
+                                ("terrain2M", terrain_ts, terrain_cams, 10.0)):
+        desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=maxr)
+        images = {}
+        for n in (1, 2, 4):
+            mesh = sharding.make_tile_mesh(n, [dev])
+            reset(*counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images[n] = sharding.render_progressive_sharded(ts, desc, baked, w, h, 1,
+                                                            mesh=mesh)
+            wall = time.perf_counter() - t0
+            emit("sharding", scene=tag, mode="tiles", entries=n, device=str(dev),
+                 width=w, height=h, spp=spp, bounces=nb, accumulations=1,
+                 wall_s=wall, time_shared_on_one_card=True,
+                 launches={**mega.LAUNCHES, **packet.LAUNCHES, **bvh.LAUNCHES},
+                 identical_to_1=bool(np.array_equal(images[n], images[1])),
+                 image_mean=float(images[n].mean()), card=smi)
+            assert np.array_equal(images[n], images[1]) and images[n].mean() > 0
+            if tag == "cornell":
+                assert mega.LAUNCHES["mega_pathtrace_spp"] == n
+            else:
+                assert bvh.LAUNCHES["pair_intersect"] > 0
+    desc = cornell_desc(lt, cams_c, lt.PathtraceType.STANDARD)
+    reset(*counters)
+    t0 = time.perf_counter()
+    img = sharding.render_progressive_sharded(scene_c, desc, baked, w, h, 1,
+                                              mesh=sharding.make_tile_mesh(2, [dev]),
+                                              mode="samples")
+    wall = time.perf_counter() - t0
+    launches_b3 = mega.LAUNCHES["mega_pathtrace_spp"]
+    emit("sharding", scene="cornell", mode="samples", entries=2, device=str(dev),
+         width=w, height=h, spp=spp, bounces=nb, accumulations=1, wall_s=wall,
+         time_shared_on_one_card=True, launches=dict(mega.LAUNCHES),
+         image_mean=float(img.mean()), card=smi)
+    assert launches_b3 == 2 and np.isfinite(img).all() and img.mean() > 0
+
+    eps = float(np.float32(1e-3))
+    W = intersect.scene_tri_matrix(scene_c)
+    gx, gy = _pixel_batch(64, 64, 0, 0, dev)
+    off = 8
+    args = (gy * 64 + gx, gx, gy, (64.0, 64.0), _camera_args(desc), False, 0, 0, 8,
+            int(lt.PathtraceType.STANDARD), nb, 100.0)
+    t_k, (acc_k, nt_k), by = kernel_ms(
+        lambda: mega.mega_pathtrace_spp(scene_c, W, *args, eps, sample_offset=off),
+        "mega_kernel", 5)
+    ctx = integrators.make_ctx(scene_c, eps)
+    p_ms, (acc_p, nt_p) = cuda_ms(
+        lambda: integrators.pathtrace_spp(scene_c, ctx, *args, sample_offset=off), 1)
+    res = compare_paths(acc_k, nt_k, acc_p, nt_p)
+    acc_0, _ = mega.mega_pathtrace_spp(scene_c, W, *args, eps)
+    emit("b3_sample_offset_vs_plain", pixels=4096, spp=8, sample_offset=off,
+         bounces=nb, differs_from_offset_0=not bool(torch.equal(acc_0.x, acc_k.x)),
+         card=smi, **res)
+    assert not torch.equal(acc_0.x, acc_k.x)
+    T, Tl, B = scene_c.num_world_tris, scene_c.lt_v0.shape[1], 4096
+    bnd = bound_ms(int(nt_k.sum()) * (T * PAIR_OPS + Tl * 60), B * 12 + B * 16 + T * 416)
+    return [entry("B3 mega_pathtrace_spp (sample_offset 8, 64², 8 spp)", "mega.cu",
+                  B3_SITE, launches_b3, res["acc_max_abs_err"], t_k, p_ms, bnd, by,
+                  launches_in="sharding samples mode, 2 entries")]
+
+
+def viewer_phase(smi):
+    """Phase 24: apps/viewer.py on the card: a 2-frame orbit of the Cornell
+    box at 128 px, 4 accumulations, --denoise --preview-normals (PNG)."""
+
+    from lupinpathtracer_tpu_torch.apps import viewer
+
+    out = os.path.join(SCENES_DIR, "frames")
+    t0 = time.perf_counter()
+    viewer.main(["--out", out, "--orbit", "2", "--width", "128", "--accums", "4",
+                 "--denoise", "--preview-normals"])
+    files = sorted(os.listdir(out))
+    emit("viewer", frames=files, wall_s=time.perf_counter() - t0, card=smi)
+    assert files == ["frame000.png", "frame000_preview.png", "frame001.png",
+                     "frame001_preview.png"]
+
+
+def file_phases(dev, smi, scene_c, cams_c, terrain, terrain_ts, terrain_cams,
+                counters):
+    """Phases 19-24 (scene files, the apps, multi-device); the scene files
+    are written under chiprun_out/chip_smoke_scenes/ in the checkout and
+    removed after. Returns the kernel entries."""
+
+    import shutil
+
+    shutil.rmtree(SCENES_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        files_terrain_phase(dev, smi, terrain, terrain_ts, terrain_cams, counters)
+        kernels = files_textured_phase(dev, smi, counters)
+        golden_files_phase(dev, smi, counters)
+        check_kernels_phase(smi)
+        kernels += sharding_phase(dev, smi, scene_c, cams_c, terrain_ts,
+                                  terrain_cams, counters)
+        viewer_phase(smi)
+        emit("file_phases", seconds=time.perf_counter() - t0, card=smi)
+    finally:
+        shutil.rmtree(SCENES_DIR, ignore_errors=True)
+    return kernels
+
+
 # f32 operations per ray/triangle test of each B6' variant: V1 and V3 trade
 # the divide and three products for det^2, rsqrt, a product, a negation,
 # three sign products and two subtractions; V5 keeps the four dot products
@@ -1616,7 +2030,7 @@ def main() -> int:
          s_per_accumulation=wall_d / 2, rays=stats_d["rays"],
          mrays_per_s=stats_d["rays"] / wall_d / 1e6,
          image_mean=float(img_d.mean()), launches=dict(dk.LAUNCHES), card=smi)
-    b2_replay = emit_b2_launches(scene, desc_d, smi)
+    b2_replay = emit_b2_launches(scene, desc_d, smi, spp=REPLAY_SPP)
 
     # Route 3 (the dense closest-hit query, intersect.closest_hit, on the
     # main path's 512x512 camera rays): B1.
@@ -1722,7 +2136,8 @@ def main() -> int:
          total_s=time.perf_counter() - t_start)
 
     # -- 7-10. the BVH route -----------------------------------------------
-    bvh_kernels, terrain_state, terrain_cams = bvh_phases(dev, smi, scene, cams)
+    bvh_kernels, terrain_state, terrain_cams, terrain_cpu = bvh_phases(
+        dev, smi, scene, cams)
     emit("bvh_phases_done", total_s=time.perf_counter() - t_start)
 
     # -- 11-13. the two-level route ------------------------------------------
@@ -1742,6 +2157,12 @@ def main() -> int:
     emit("aov_phases_done", total_s=time.perf_counter() - t_start)
     streams_phase(dev, smi, bvh_scenes, counters)
     emit("streams_phase_done", total_s=time.perf_counter() - t_start)
+
+    # -- 19-24. scene files, the apps and multi-device -------------------------
+    api_kernels += file_phases(dev, smi, scene, cams, terrain_cpu, terrain_state[0],
+                               terrain_cams, counters)
+    del terrain_cpu
+    emit("file_phases_done", total_s=time.perf_counter() - t_start)
 
     # -- the B6' variants on both round-1 states ------------------------------
     kernels += bvh_kernels + inst_kernels + api_kernels + prof_pair_phase(

@@ -7,11 +7,16 @@ JAX nor the JAX package. Entry points run on the GPU (`device="cuda"`)
 unless the caller passes `device="cpu"`, which runs the plain PyTorch
 versions of the kernels.
 
-It covers the JAX package's render API: scene building (dense scenes and
-BVH scenes, single-level and two-level), the pathtrace dispatch under all
-four integrators, the falsecolor AOVs and debug heatmaps, tonemapping and
-the à-trous denoiser. The scene loaders, the apps and multi-device
-rendering are still to port (ROADMAP.md).
+It does what the JAX package does: scene building (dense scenes and BVH
+scenes, single-level and two-level), the pathtrace dispatch under all four
+integrators, the falsecolor AOVs and debug heatmaps, tonemapping and the
+à-trous denoiser; the scene and image files (io/: binary PLY, Yocto/GL
+JSON scenes, textures, OpenEXR, Radiance HDR); the apps (apps/: the render
+CLI, the golden runner, the kernel check, the headless viewer, the scaling
+study); and multi-device rendering (parallel/sharding.py: image tiles or
+sample sets over a list of devices). Left out by design: the JAX package's
+packet probe and its LUPIN_PACKET_STREAM scalar-memory ring (TPU
+mechanisms), and bench.py (ROADMAP.md).
 """
 
 from .core.types import (
