@@ -61,6 +61,19 @@ main paths through its entry points:
   meshes of 1, 2 and 4 entries of the card, images identical; samples
   mode; B3 with sample_offset 8 against its plain version) and
   apps/viewer.py (a 2-frame orbit at 128 px);
+- the traversal controls: packet_gate_field, the smallest instanced field
+  (120,000 instances) whose top tree passes the JAX package's 23,437-row
+  TPU budget, its camera batch through B4 and through the sort wavefront
+  (LUPIN_NO_PACKET), t equal on every lane, B4 bit for bit against its
+  plain version; dispatch_1080p, terrain2M at 1920x1080 x 1 spp, one
+  dispatch by the working-set self-bound and 40 under the JAX package's
+  rays x stride rule (LUPIN_DISPATCH_RAY_STRIDE_BUDGET), the images
+  identical and the peak of allocated memory within the reckoning
+  (renderer.dispatch_bytes_per_lane); packet_bounce, both BVH main paths
+  (instanced100k at 1 spp) by default, under LUPIN_FORCE_PACKET (B4 on
+  bounce batches) and with LUPIN_PACKET_RAYSORT too, each forced image
+  against the default's, B4's first and last live bounce launch replayed
+  sorted and unsorted against its plain version bit for bit;
 - B6 and the B6' ablation variants (tools/prof_pair.py of the port) in
   turns on the round-1 states of the terrain2M and instanced100k camera
   batches, with the share of B6's threads that hold a pair in each design.
@@ -234,12 +247,15 @@ def device_profile(fn):
     n: dict = {}
     other: dict = {}
     spans = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # The profiler's raw records (ns): building its Python event tree costs
+    # about 0.1 ms a record, minutes for a dispatch of 10^5-10^6 launches.
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        a, b = e.time_range.start, e.time_range.end
-        low = e.name.lower()
-        g = next((k for k, sub in KERNEL_GROUPS if sub in e.name), None)
+        a, b = e.start_ns() / 1e3, e.end_ns() / 1e3
+        name = e.name()
+        low = name.lower()
+        g = next((k for k, sub in KERNEL_GROUPS if sub in name), None)
         if g is None:
             g = ("sort" if "sort" in low else
                  "copy_fill" if "memcpy" in low or "memset" in low
@@ -248,7 +264,7 @@ def device_profile(fn):
         n[g] = n.get(g, 0) + 1
         spans.append((a, b))
         if g == "other_torch":
-            k = e.name[:60]
+            k = name[:60]
             t, c = other.get(k, (0.0, 0))
             other[k] = (t + (b - a) / 1e3, c + 1)
     busy = 0.0
@@ -1797,6 +1813,355 @@ def file_phases(dev, smi, scene_c, cams_c, terrain, terrain_ts, terrain_cams,
     return kernels
 
 
+# -- the traversal controls (phases 25-27) -------------------------------------
+
+# The JAX package's packet gate in top rows: its VMEM budget for the
+# lane-padded top tree (intersect.py:113-138), 96,000,000 B over 8 children
+# x 128 lanes x 4 B a row.
+JAX_GATE_ROWS = 96_000_000 // (8 * 128 * 4)  # 23,437
+FIELD_ROWS = 22_912  # instanced100k's top rows (its instanced_build line)
+HD = (1920, 1080)
+
+
+def with_env(env: dict, fn):
+    """fn() with the variables in `env` set, each removed after."""
+
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def packet_gate_phase(dev, smi, counters, width=512, height=288):
+    """Phase 25, packet_gate_field: the smallest instanced field (a multiple
+    of 5,000 instances of 64-triangle meshes, one mesh superleaf each)
+    whose top tree has more than JAX_GATE_ROWS rows, which the JAX package
+    sends to its sort wavefront. Its camera batch through B4 (the port has
+    no TPU budget) and, under LUPIN_NO_PACKET, through the wavefront: t
+    equal on every lane, the winner except at exact-t ties; B4 against its
+    plain version, bit for bit, with its bound. Returns B4's kernel
+    entry."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.io import synthetic
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+    from lupinpathtracer_tpu_torch.scene import flatten
+    from lupinpathtracer_tpu_torch.tools import prof_pair
+
+    # Reckoned from instanced100k (rows about linear in the instances),
+    # then the next multiples of 5,000 until the built tree passes the
+    # budget: its fill is not monotone in the instance count.
+    n = -(-JAX_GATE_ROWS * FIELD_INSTANCES // (FIELD_ROWS * 5000)) * 5000
+    tried = []
+    t0 = time.perf_counter()
+    while True:
+        field, cams = synthetic.build_scene_instanced_field(
+            n_instances=n, seed=0, tris_per_mesh=64)
+        arrays, statics = flatten.flatten_numpy(field)
+        rows = int(arrays["top_tab"].shape[0])
+        tried.append([n, rows])
+        if rows > JAX_GATE_ROWS:
+            break
+        n += 5000
+        assert n + 2 <= intersect.PACKET_MAX_GSL, tried
+    search_s = time.perf_counter() - t0
+    ts = flatten.scene_from_numpy(arrays, statics, dev)
+    del field, arrays
+    eligible = intersect.packet_eligible(ts)
+    assert ts.two_level and ts.sl_count <= intersect.PACKET_MAX_GSL and eligible
+
+    eps = float(np.float32(lt.PathtraceDesc().advanced.ray_epsilon))
+    W = intersect.scene_tri_matrix(ts)
+    ro, rd = prof_pair.camera_rays(cams[0], width, height, dev)
+    B = ro.x.shape[0]
+
+    def hit_b4():
+        return intersect.closest_hit(ts, ro, rd, eps, W=W)
+
+    def hit_wf():
+        return with_env({"LUPIN_NO_PACKET": "1"}, hit_b4)
+
+    hit_b4(), hit_wf()  # warm-up
+    reset(*counters)
+    ms_b4, h4 = dispatch_ms(hit_b4)
+    l_b4 = {**packet.LAUNCHES, **bvh.LAUNCHES}
+    reset(*counters)
+    ms_wf, hw = dispatch_ms(hit_wf)
+    l_wf = {**packet.LAUNCHES, **bvh.LAUNCHES}
+    assert l_b4["packet_traverse"] == 1 and l_b4["top_traverse"] == 0, l_b4
+    assert l_wf["packet_traverse"] == 0 and l_wf["top_traverse"] > 0, l_wf
+    t_equal = bool(torch.equal(h4.dst, hw.dst)) and bool(torch.equal(h4.hit, hw.hit))
+    ties = int(((h4.tri != hw.tri) & h4.hit).sum())
+
+    t_k, k4, by4 = kernel_ms(lambda: packet.packet_traverse(ts, ro, rd, eps, W),
+                             "packet_kernel", 5)
+    work4: dict = {}
+    p_ms, p4 = plain_ms(lambda: packet.packet_traverse_plain(
+        ts, ro, rd, eps, W, counts=work4))
+    res = compare_hits(k4, p4, dk.F32_MAX)
+    assert_equal(k4, p4, "B4 on the gate field")
+    bnd = b4_bound(work4, B, B * 20, rows, ts.sl_sub.numel(),
+                   extra_ops=work4["leaf_visits"] * LEAF_FRAME_OPS,
+                   extra_bytes=work4["leaf_visits"] * 64)
+    emit("packet_gate_field", instances=n, search=tried, search_s=search_s,
+         top_rows=rows, jax_gate_rows=JAX_GATE_ROWS, sl_count=ts.sl_count,
+         top_depth=ts.top_depth, packet_eligible=eligible, rays=B,
+         hits=int(h4.hit.sum()), b4_route_ms=ms_b4, wavefront_route_ms=ms_wf,
+         launches_b4_route=l_b4, launches_wavefront_route=l_wf,
+         t_equal_every_lane=t_equal, winner_differs_at_exact_t_ties=ties,
+         b4_ms=t_k, b4_plain_ms=p_ms, b4_bound_ms=bnd[0], b4_bound_by=bnd[1],
+         b4_share_of_bound=bnd[0] / t_k, lane_share=work4["lane_share"],
+         timed_by=by4, bit_for_bit=True, card=smi)
+    assert t_equal and ties <= 1e-4 * B
+    del ts, W
+    torch.cuda.empty_cache()
+    return [entry(f"B4 packet_traverse (two-level; gate field, {n} instances, "
+                  f"{rows} top rows)", "packet.cu", B4_SITE, l_b4["packet_traverse"],
+                  res["max_abs_err"], t_k, p_ms, bnd, by4,
+                  launches_in="packet_gate_field camera batch")]
+
+
+def dispatch_1080p_phase(dev, smi, ts, cams, counters, spp=1, bounces=8):
+    """Phase 26, dispatch_1080p: terrain2M, STANDARD, 1920x1080 x 1 spp x
+    8 bounces, one accumulation, by default (the working-set self-bound:
+    one dispatch) and under LUPIN_DISPATCH_RAY_STRIDE_BUDGET=700000000 (the
+    JAX package's rays x stride rule: 256² tiles); per run the dispatches,
+    wall, segments, Mrays/s, kernel launches, PyTorch launches (one
+    profiled accumulation) and the peak of allocated memory above the
+    allocation before the run, against dispatch_bytes_per_lane x lanes.
+    The images must be identical (every path's random stream keys on its
+    pixel, and each kernel's result on a lane does not depend on the other
+    lanes of its batch)."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
+    from lupinpathtracer_tpu_torch.render import integrators, renderer
+
+    w, h = HD
+    desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=10.0)
+    baked = lt.BakedPathtraceParams(max_bounces=bounces, samples_per_pixel=spp)
+    per_lane = renderer.dispatch_bytes_per_lane(ts, baked, int(desc.pathtrace_type))
+    reckoned = per_lane * w * h
+    mem = renderer.device_memory_bytes(dev)
+    out = {}
+    for run, env in (("default", {}),
+                     ("jax_budget", {"LUPIN_DISPATCH_RAY_STRIDE_BUDGET": "700000000"})):
+        def render(stats=None):
+            return lt.render_progressive(ts, desc, baked, w, h, 1, device=dev,
+                                         stats=stats)
+
+        tiles = with_env(env, lambda: renderer.dispatch_tiles(
+            ts, (h, w), baked, int(desc.pathtrace_type), dev))
+        calls = []
+        real = renderer._render_pathtrace
+        renderer._render_pathtrace = lambda *a, **k: calls.append(1) or real(*a, **k)
+        try:
+            stats: dict = {}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset(*counters)
+            t0 = time.perf_counter()
+            img = with_env(env, lambda: render(stats))
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+            syncs = {**intersect.HOST_SYNCS, **integrators.HOST_SYNCS}
+            dispatches = len(calls)
+        finally:
+            renderer._render_pathtrace = real
+        prof = with_env(env, lambda: device_profile(render))
+        out[run] = img
+        emit("dispatch_1080p", run=run, width=w, height=h, spp=spp, bounces=bounces,
+             integrator="STANDARD", tile=tiles, dispatches=dispatches, wall_s=wall,
+             rays=stats["rays"], mrays_per_s=stats["rays"] / wall / 1e6,
+             launches=launches, host_syncs=syncs,
+             torch_launches_by_group=prof["kernels_by_group"],
+             torch_launches=sum(prof["kernels_by_group"].values()),
+             device_busy_ms=prof["device_busy_ms"],
+             device_busy_share_of_wall=prof["device_busy_ms"] * 1e-3 / wall,
+             bytes_per_lane=per_lane, reckoned_gb=reckoned / 1e9,
+             peak_allocated_above_start_gb=peak / 1e9,
+             allocated_at_start_gb=base / 1e9, device_memory_gb=mem / 1e9,
+             peak_within_reckoning=peak <= reckoned, card=smi)
+        assert peak <= reckoned and base + peak < mem / 2, (peak, reckoned, base)
+        n_tiles = 1 if tiles is None else np.prod(lt.get_num_tiles(w, h, tiles))
+        assert dispatches == n_tiles and (run == "jax_budget") == (n_tiles > 1)
+        assert np.isfinite(img).all() and img.mean() > 0
+    diff = np.any(out["default"] != out["jax_budget"], axis=-1)
+    emit("dispatch_1080p_images", identical=not diff.any(),
+         pixels_differing=int(diff.sum()),
+         max_abs_diff=float(np.abs(out["default"] - out["jax_budget"]).max()), card=smi)
+    assert diff.mean() <= 1e-4
+
+
+def b4_replay(ts, rec_args, smi, reps=3):
+    """One recorded B4 launch, unsorted and sorted, each equal to the plain
+    version bit for bit: the kernel's ms either way, the plain ms, the
+    bound, the lane share of the batch's packets in either order, and the
+    lanes whose winner differs from the sort wavefront's on the same rays
+    (exact-t ties)."""
+
+    from lupinpathtracer_tpu_torch.kernels import intersect, packet
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+
+    a, kw = rec_args
+    scene, ro, rd, eps, W = a
+    act = kw.get("active")
+    B = ro.x.shape[0]
+    ms_u, k_u, by_u = kernel_ms(lambda: packet.packet_traverse(*a, **kw, ray_sort=False),
+                                "packet_kernel", reps)
+    ms_s, k_s, by_s = kernel_ms(lambda: packet.packet_traverse(*a, **kw, ray_sort=True),
+                                "packet_kernel", reps)
+    work: dict = {}
+    p_ms, p = plain_ms(lambda: packet.packet_traverse_plain(*a, **kw, counts=work))
+    assert_equal(k_u, p, "B4 replay, unsorted")
+    assert_equal(k_s, p, "B4 replay, sorted")
+    _, sro, srd, sact = packet.coherence_order(scene, ro, rd, act)
+    work_s: dict = {}
+    packet.packet_traverse_plain(scene, sro, srd, eps, W, active=sact,
+                                 with_attrs=kw.get("with_attrs", False), counts=work_s)
+    hits = int((p[0] < dk.F32_MAX).sum())
+    rows = scene.top_tab.shape[0]
+    if scene.two_level:
+        bnd = b4_bound(work, B, B * 20, rows, scene.sl_sub.numel(),
+                       extra_ops=work["leaf_visits"] * LEAF_FRAME_OPS,
+                       extra_bytes=work["leaf_visits"] * 64)
+    else:
+        awout = p[5].shape[0] if len(p) > 5 else 0
+        bnd = b4_bound(work, B, B * (20 + awout * 4)
+                       + (hits * attr_row_bytes(bool(scene.any_normal_maps)) if awout else 0),
+                       rows, scene.sl_sub.numel())
+    hw = with_env({"LUPIN_NO_PACKET": "1"}, lambda: intersect.closest_hit_wavefront(
+        scene, ro, rd, eps, W=W, active=act, coherent=False))
+    both = hw.hit & (p[0] < dk.F32_MAX)
+    return dict(rays=B, active=B if act is None else int(act.sum()), hits=hits,
+                ms_unsorted=ms_u, ms_sorted=ms_s, plain_ms=p_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], lane_share_unsorted=work["lane_share"],
+                lane_share_sorted=work_s["lane_share"],
+                t_equal_wavefront=bool(torch.equal(hw.dst, p[0])),
+                winner_differs_from_wavefront=int(((hw.tri != p[4]) & both).sum()),
+                timed_by=sorted({by_u, by_s}), bit_for_bit=True)
+
+
+# packet_bounce's depth cut: instanced100k at 1 spp keeps the three control
+# phases near 120 s (PERF.md section 4).
+BOUNCE_SPP = {"instanced100k": 1}
+
+
+def packet_bounce_phase(dev, smi, bvh_scenes, counters):
+    """Phase 27, packet_bounce: both BVH main paths (512x288 x 4 spp x 8
+    bounces, STANDARD; instanced100k at BOUNCE_SPP's 1 spp; 1 warm-up + 1
+    timed and 1 profiled accumulation)
+    on three routes: the default (B4 on camera rays, the sort wavefront on
+    bounces), LUPIN_FORCE_PACKET=1 (B4 on every batch) and with
+    LUPIN_PACKET_RAYSORT=1 too. Per route the wall, Mrays/s, launches,
+    syncs, device busy share and B4's mean device ms per launch in the
+    profiled accumulation; each forced image against the default's (the
+    segments within 0.1%, >= 99.9% of pixels within 1e-4 relative). Then
+    B4's first and last live bounce launch of a 1-spp forced accumulation
+    (REPLAY_SPP) replayed unsorted and sorted against the plain version
+    (b4_replay), and the camera batch's lane share in either order.
+    Returns B4's bounce-batch kernel entries."""
+
+    import lupinpathtracer_tpu_torch as lt
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
+    from lupinpathtracer_tpu_torch.render import integrators
+    from lupinpathtracer_tpu_torch.tools import replay
+
+    (w, h), nb = API["bvh_wh"], API["bounces"]
+    force = {"LUPIN_FORCE_PACKET": "1"}
+    routes = (("default", {}), ("force_packet", force),
+              ("force_packet_raysort", {**force, "LUPIN_PACKET_RAYSORT": "1"}))
+    kernels = []
+    for tag, (ts, cams) in bvh_scenes.items():
+        spp = BOUNCE_SPP.get(tag, API["bvh_spp"])
+        baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=spp)
+        desc = cornell_desc(lt, cams, lt.PathtraceType.STANDARD, max_radiance=10.0)
+        base = None
+        b4_launches = {}
+        for route, env in routes:
+            warm_s, wall, rays, img = with_env(env, lambda: timed_render(
+                ts, desc, baked, w, h, 1, counters, dev))
+            launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+            b4_launches[route] = launches["packet_traverse"]
+            syncs = {**intersect.HOST_SYNCS, **integrators.HOST_SYNCS}
+            prof = with_env(env, lambda: device_profile(lambda: lt.render_progressive(
+                ts, desc, baked, w, h, 1, device=dev)))
+            n_b4 = prof["kernels_by_group"].get("B4", 0)
+            other = {g: c for g, c in prof["kernels_by_group"].items()
+                     if g not in dict(KERNEL_GROUPS)}
+            if base is None:
+                base = (rays, img)
+            rel = np.abs(img - base[1]) <= 1e-4 * np.abs(base[1])
+            within = float(np.all(rel, axis=-1).mean())
+            emit("packet_bounce", scene=tag, route=route, env=env, width=w, height=h,
+                 spp=spp, bounces=nb, warmup_s=warm_s, s_per_accumulation=wall,
+                 rays=rays, mrays_per_s=rays / wall / 1e6, launches=launches,
+                 other_torch_launches=other,
+                 other_torch_launches_total=sum(other.values()), host_syncs=syncs,
+                 device_busy_ms=prof["device_busy_ms"],
+                 device_busy_share_of_wall=prof["device_busy_ms"] * 1e-3 / wall,
+                 device_ms_by_group=prof["device_ms_by_group"],
+                 b4_mean_ms_per_launch_profiled=(
+                     prof["device_ms_by_group"].get("B4", 0.0) / n_b4 if n_b4 else None),
+                 rays_rel_diff_vs_default=abs(rays - base[0]) / base[0],
+                 pixels_within_rel_1e4_of_default=within,
+                 image_max_abs_diff_vs_default=float(np.abs(img - base[1]).max()),
+                 card=smi)
+            assert abs(rays - base[0]) <= 1e-3 * base[0] and within >= 0.999
+            assert np.isfinite(img).all() and img.mean() > 0
+            if route != "default":
+                assert launches["packet_traverse"] > 1, launches
+
+        # B4's launches of a 1-spp forced accumulation: the camera batch,
+        # then one per bounce.
+        rec = with_env(force, lambda: replay.record_launches(
+            packet, "packet_traverse",
+            replay.one_accumulation(ts, desc, w, h, REPLAY_SPP, nb), share=(0, 4)))
+        cam = rec[0]
+        _, sro, srd, _ = packet.coherence_order(ts, cam[0][1], cam[0][2])
+        cam_u: dict = {}
+        cam_s: dict = {}
+        packet.packet_traverse_plain(*cam[0], **cam[1], counts=cam_u)
+        packet.packet_traverse_plain(ts, sro, srd, cam[0][3], cam[0][4],
+                                     with_attrs=cam[1].get("with_attrs", False),
+                                     counts=cam_s)
+        # The last launch with a live lane: the loop's final launch may hold
+        # none (every path ended).
+        last = max(i for i, (_, k) in enumerate(rec)
+                   if k.get("active") is None or bool(k["active"].any()))
+        reps = {}
+        for which, i in (("first_bounce", 1), ("last_live_bounce", last)):
+            reps[which] = b4_replay(ts, rec[i], smi)
+            emit("packet_bounce_b4_replay", scene=tag, launch=which, index=i,
+                 launches_recorded=len(rec), card=smi, **reps[which])
+        emit("packet_bounce_camera_lane_share", scene=tag,
+             lane_share_unsorted=cam_u["lane_share"],
+             lane_share_sorted=cam_s["lane_share"], card=smi)
+        rs = list(reps.values())
+        for route, key, share in (("force_packet", "ms_unsorted", "lane_share_unsorted"),
+                                  ("force_packet_raysort", "ms_sorted", "lane_share_sorted")):
+            ms = sum(r[key] for r in rs) / len(rs)
+            bnd = (sum(r["bound_ms"] for r in rs) / len(rs), rs[0]["bound_by"])
+            p_ms = sum(r["plain_ms"] for r in rs) / len(rs)
+            by = "device_records" if all(r["timed_by"] == ["device_records"]
+                                         for r in rs) else "events"
+            emit("packet_bounce_b4", scene=tag, route=route, mean_ms=ms, bound_ms=bnd[0],
+                 share_of_bound=bnd[0] / ms,
+                 mean_lane_share=sum(r[share] for r in rs) / len(rs),
+                 launches_per_accumulation=b4_launches[route], card=smi)
+            kernels.append(entry(
+                f"B4 packet_traverse ({tag}; bounce batches, "
+                f"{'sorted' if 'raysort' in route else 'unsorted'}; mean of the first "
+                f"and last live bounce launch)", "packet.cu", B4_SITE, b4_launches[route],
+                0.0, ms, p_ms, bnd, by, launches_in=f"packet_bounce {route}"))
+    return kernels
+
+
 # f32 operations per ray/triangle test of each B6' variant: V1 and V3 trade
 # the divide and three products for det^2, rsqrt, a product, a negation,
 # three sign products and two subtractions; V5 keeps the four dot products
@@ -2163,6 +2528,14 @@ def main() -> int:
                                terrain_cams, counters)
     del terrain_cpu
     emit("file_phases_done", total_s=time.perf_counter() - t_start)
+
+    # -- 25-27. the traversal controls ----------------------------------------
+    api_kernels += packet_gate_phase(dev, smi, counters)
+    emit("packet_gate_phase_done", total_s=time.perf_counter() - t_start)
+    dispatch_1080p_phase(dev, smi, terrain_state[0], terrain_cams, counters)
+    emit("dispatch_1080p_phase_done", total_s=time.perf_counter() - t_start)
+    api_kernels += packet_bounce_phase(dev, smi, bvh_scenes, counters)
+    emit("packet_bounce_phase_done", total_s=time.perf_counter() - t_start)
 
     # -- the B6' variants on both round-1 states ------------------------------
     kernels += bvh_kernels + inst_kernels + api_kernels + prof_pair_phase(

@@ -14,9 +14,26 @@ integrators, the falsecolor AOVs and debug heatmaps, tonemapping and the
 JSON scenes, textures, OpenEXR, Radiance HDR); the apps (apps/: the render
 CLI, the golden runner, the kernel check, the headless viewer, the scaling
 study); and multi-device rendering (parallel/sharding.py: image tiles or
-sample sets over a list of devices). Left out by design: the JAX package's
-packet probe and its LUPIN_PACKET_STREAM scalar-memory ring (TPU
-mechanisms), and bench.py (ROADMAP.md).
+sample sets over a list of devices).
+
+The environment switches it reads, at each call as the JAX package does:
+LUPIN_NO_PACKET (no kernel B4), LUPIN_FORCE_PACKET (B4 on bounce batches
+too), LUPIN_PACKET_RAYSORT (B4's coherence sort), LUPIN_PACKET_MAX_GSL
+(B4's superleaf envelope), LUPIN_WF_Q, LUPIN_WF_Q_DIV, LUPIN_WF_Q_TAIL and
+LUPIN_WF_TAIL_C (the BVH wavefront's emits per round and straggler
+capacity; kernels/intersect.py), LUPIN_SPP_STREAMS (sample streams),
+LUPIN_DISPATCH_RAY_STRIDE_BUDGET and LUPIN_DISPATCH_TILE_FLOOR (the
+dispatch self-bound, render/renderer.py: by default a frame is split only
+where its working set would pass half of the device's memory; the budget
+variable restores the JAX package's rays x stride rule). An invalid
+integer value raises a ValueError naming the variable.
+
+Without a counterpart, by design: the JAX package's packet probe
+(LUPIN_SKIP_PROBE) and its scalar-memory ring (LUPIN_PACKET_STREAM), TPU
+mechanisms; LUPIN_PACKET_GEO_VMEM_MAX and LUPIN_PACKET_REFS_SMEM_MAX, the
+TPU's VMEM and SMEM budgets for a staged top tree (B4 here reads the tree
+from global memory and is gated by its own limits, intersect.packet_eligible);
+LUPIN_PACKET_EV_PREC, which no JAX code reads; and bench.py (ROADMAP.md).
 """
 
 from .core.types import (

@@ -16,7 +16,10 @@ Environment knobs, read at each dispatch as in the JAX package:
 LUPIN_SPP_STREAMS (concurrent sample streams per pixel on the wavefront
 route, integrators.pathtrace_spp; 1 unless it is >= 1 and divides spp),
 LUPIN_DISPATCH_RAY_STRIDE_BUDGET and LUPIN_DISPATCH_TILE_FLOOR (the
-self-bounding split of a BVH frame, pathtrace_scene).
+self-bounding split of a BVH frame, dispatch_tiles: by default a frame is
+split only where its working set, dispatch_bytes_per_lane per pixel, would
+pass half of the device's memory; the budget variable restores the JAX
+package's rays x stride rule).
 """
 
 from __future__ import annotations
@@ -145,13 +148,10 @@ def _render_pathtrace(scene, image, cam, origin_x, origin_y, accum_counter,
             ray_epsilon,
         )
     else:
-        streams = int(os.environ.get("LUPIN_SPP_STREAMS", "1"))
-        if streams < 1 or spp % streams:
-            streams = 1
         acc, n_traced = integrators.pathtrace_spp(
             scene, ctx, pixel_idx, gx, gy, resolution, cam, is_ortho,
             accum_counter, rng_seed, spp, ptype, max_bounces, max_radiance,
-            streams=streams,
+            streams=_streams(spp),
         )
     if stats is not None:
         stats["rays"] = stats.get("rays", 0) + int(n_traced.sum())
@@ -190,13 +190,97 @@ def _runtime_checks(scene, baked: BakedPathtraceParams):
 
 _VALIDATED_SCENES: set = set()
 
-# Self-bounding dispatch (renderer.py:358-380): without explicit tiling, a
-# BVH frame whose rays x superleaf stride exceeds the budget is split into
-# square tiles (largest power of two from 1024 down to the floor). The
-# defaults; LUPIN_DISPATCH_RAY_STRIDE_BUDGET and LUPIN_DISPATCH_TILE_FLOOR
-# override them at each dispatch.
-DISPATCH_RAY_STRIDE_BUDGET = 700_000_000
+# Self-bounding dispatch (renderer.py:358-380; renderer.rs:651-681: no
+# dispatch grows unbounded). Without explicit tiling, a BVH frame whose
+# working set would pass half of the device's memory is split into square
+# tiles (the largest power of two from 1024 down to the floor, renderer.py's
+# search): the other half holds the scene, the image and the allocator's
+# slack, which share the device with the dispatch. The JAX package's rule
+# instead bounds rays x superleaf stride (700,000,000: its dense
+# f32[rays, 4, stride] fetch tensor in TPU HBM, which the port never
+# builds); LUPIN_DISPATCH_RAY_STRIDE_BUDGET selects that rule with the
+# budget given, and LUPIN_DISPATCH_TILE_FLOOR moves the floor.
 DISPATCH_TILE_FLOOR = 128
+DISPATCH_MEMORY_SHARE = 0.5
+
+# Bytes per pair slot of a wavefront round (Q slots a lane): B5's superleaf
+# id, the sort key and its mask, the sorted key, the order (int64), the
+# radix sort's double buffers and index iota (20), the pair's ray index
+# (int64) and gathered ray (24), B6's five outputs (20), the valid-slot
+# mask and its iota (9), the masked t and the global id (12) and the five
+# un-sorted copies (20).
+_PAIR_BYTES = 4 + 5 + 4 + 8 + 20 + 8 + 24 + 20 + 9 + 12 + 20
+# 4-byte words per lane of the integrator: the path's carried state (ray,
+# hit record, weight, radiance, volume slot, counters, sample index, acc,
+# the regeneration inputs: ~48 words) and one bounce's temporaries (the
+# material point, normals, positions, sampled directions, the respawned
+# camera rays: ~144 words). The attribute rows come on top.
+_PATH_WORDS = 48 + 144
+
+
+def dispatch_bytes_per_lane(scene, baked: BakedPathtraceParams, ptype: int) -> int:
+    """Bytes the port holds live per pixel lane during one pathtrace
+    dispatch of a BVH scene: per traced ray (MIS traces three slots a lane,
+    DIRECT two), the wavefront's stack (bk.stack_depth int32 rows, twice:
+    the straggler scatter copies it), its sp and best_* rows (twice, the
+    round's and the next), the padded rays and Q pair slots at the larger
+    of the switches' Q (wf_params), and B7's attribute rows (IA_ROWS[_NM]:
+    its output, the scatter's and the mask's copies) with its sort; per
+    lane the integrator's state and temporaries and the carried attribute
+    rows; times the sample streams (LUPIN_SPP_STREAMS) the dispatch runs."""
+
+    from ..kernels import bvh as bk
+
+    S = bk.stack_depth(scene)
+    Q = max(intersect.wf_params(True)["Q"], intersect.wf_params(False)["Q"])
+    ia = bk.IA_ROWS_NM if scene.any_normal_maps else bk.IA_ROWS
+    slots = {int(PathtraceType.MIS): 3, int(PathtraceType.DIRECT): 2}.get(int(ptype), 1)
+    wavefront = 2 * 4 * S + 2 * 6 * 4 + 6 * 4 + Q * _PAIR_BYTES
+    fetch = 3 * ia * 4 + 48
+    path = (_PATH_WORDS + ia) * 4
+    return _streams(int(baked.samples_per_pixel)) * (slots * (wavefront + fetch) + path)
+
+
+def device_memory_bytes(device) -> int:
+    """The memory a dispatch on `device` shares: the card's
+    (torch.cuda.get_device_properties), or on the CPU the host's
+    physical memory."""
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def dispatch_tiles(scene, image_shape, baked: BakedPathtraceParams,
+                   ptype: int, device):
+    """The self-bound's tile size, or None when the frame is one dispatch:
+    by the working-set rule (lanes x dispatch_bytes_per_lane against
+    DISPATCH_MEMORY_SHARE of device_memory_bytes), or by the JAX package's
+    rays x stride rule when LUPIN_DISPATCH_RAY_STRIDE_BUDGET is set."""
+
+    H, W = image_shape[:2]
+    raw = os.environ.get("LUPIN_DISPATCH_RAY_STRIDE_BUDGET")
+    if raw is not None:
+        per_lane, budget = max(int(scene.sl_stride), 1), int(raw)
+    else:
+        per_lane = dispatch_bytes_per_lane(scene, baked, ptype)
+        budget = int(DISPATCH_MEMORY_SHARE * device_memory_bytes(device))
+    if W * H * per_lane <= budget:
+        return None
+    ts = 1024
+    floor = int(os.environ.get("LUPIN_DISPATCH_TILE_FLOOR", DISPATCH_TILE_FLOOR))
+    while ts > floor and ts * ts * per_lane > budget:
+        ts //= 2
+    return ts
+
+
+def _streams(spp: int) -> int:
+    """LUPIN_SPP_STREAMS as a dispatch applies it: 1 unless it is >= 1 and
+    divides spp."""
+
+    streams = int(os.environ.get("LUPIN_SPP_STREAMS", "1"))
+    return 1 if streams < 1 or spp % streams else streams
 
 
 def _dispatch_setup(scene, image, desc: PathtraceDesc,
@@ -248,15 +332,9 @@ def pathtrace_scene(scene, image, desc: PathtraceDesc,
 
     if not desc.tile_params.enabled and scene.use_bvh and scene.sl_count:
         H, W = image.shape[:2]
-        budget = int(os.environ.get("LUPIN_DISPATCH_RAY_STRIDE_BUDGET",
-                                    DISPATCH_RAY_STRIDE_BUDGET))
-        stride = max(int(scene.sl_stride), 1)
-        if W * H * stride > budget:
-            ts = 1024
-            floor = int(os.environ.get("LUPIN_DISPATCH_TILE_FLOOR",
-                                       DISPATCH_TILE_FLOOR))
-            while ts > floor and ts * ts * stride > budget:
-                ts //= 2
+        ts = dispatch_tiles(scene, image.shape, baked, int(desc.pathtrace_type),
+                            image.device)
+        if ts is not None:
             nx, ny = get_num_tiles(W, H, ts)
             for idx in range(nx * ny):
                 tx, ty = (idx % nx) * ts, (idx // nx) * ts

@@ -448,11 +448,12 @@ def flatten_numpy(
         else:
             stride = sl_mod.pick_stride(Tw)
             # The top table scales with G = sum over instances of their
-            # mesh's superleaf count, NOT with unique mesh triangles:
-            # grow the stride until the estimate fits the VMEM-resident
-            # fast path (pick_stride(Tw) alone parked every large
-            # instanced scene in the "raise the stride" warning below
-            # instead of self-tuning).
+            # mesh's superleaf count, NOT with unique mesh triangles: grow
+            # the stride until G <= 262144, the JAX package's layout rule
+            # (lupinpathtracer_tpu/scene/flatten.py:571; its bound is a TPU
+            # memory budget), kept so that this scene is array-equal to the
+            # JAX package's. The card's kernels read the table from device
+            # memory at any size.
             tri_of_inst = np.array(
                 [mesh_tris[inst.mesh_idx] for inst in scene.instances],
                 np.int64,
@@ -541,9 +542,7 @@ def flatten_numpy(
         g_lo = tc.min(axis=1).astype(np.float32)
         g_hi = tc.max(axis=1).astype(np.float32)
         # Child refs are three 8-bit bf16 factors -> 16.7M addressable
-        # (renderer.rs:317-319's 1M-instance envelope fits). The VMEM-
-        # resident row table is the practical per-dispatch bound: ~260k
-        # internal rows = ~10 MB of the ~16 MB VMEM.
+        # (renderer.rs:317-319's 1M-instance envelope fits).
         assert 1 <= G < (1 << 24), (
             f"two-level top tree: {G} instance-superleaves exceeds the "
             "3-factor reference encoding"
@@ -560,9 +559,12 @@ def flatten_numpy(
             import warnings
 
             warnings.warn(
-                f"two-level top table has {G} rows (~{G * 40 / 2 ** 20:.0f} MB)"
-                " — beyond the VMEM-resident fast path; traversal will be"
-                " slow. Raise the superleaf stride.",
+                f"two-level top tree over {G} instance-superleaves: past the"
+                " JAX package's layout bound (262144). Bounce batches take"
+                " the sort wavefront as always; camera batches take it too"
+                " beyond LUPIN_PACKET_MAX_GSL (131072 by default) superleaves"
+                " (kernels/intersect.py::packet_eligible). A larger superleaf"
+                " stride (sl_stride_opt) gives fewer, larger superleaves.",
                 stacklevel=2,
             )
         gsl_inst = np.asarray(g_inst, np.int32)

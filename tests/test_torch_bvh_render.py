@@ -68,13 +68,16 @@ def test_closest_hit_wavefront_routes_match_jax(name, monkeypatch):
     """Both routes of the port's closest_hit_wavefront against the JAX sort
     wavefront (interpret mode) and the JAX stack walk, with an active mask."""
 
-    monkeypatch.setenv("LUPIN_NO_PACKET", "1")  # the JAX sort route
     tpu, ts, span = both(name)
     (jro, jrd), (tro, trd) = rays(600, span, seed=11)
     act = np.random.default_rng(3).random(600) < 0.8
     ref = jint.closest_hit_bvh(tpu, jro, jrd, EPS)
-    jw = jint.closest_hit_wavefront(tpu, jro, jrd, EPS, active=jnp.asarray(act),
-                                    coherent=False)
+    with monkeypatch.context() as m:
+        # The JAX sort route; the port reads the switch too, so it is set
+        # around the JAX call only.
+        m.setenv("LUPIN_NO_PACKET", "1")
+        jw = jint.closest_hit_wavefront(tpu, jro, jrd, EPS,
+                                        active=jnp.asarray(act), coherent=False)
     ref_hit = np.asarray(ref.hit) & act
     np.testing.assert_array_equal(np.asarray(jw.hit), ref_hit)
     tint.HOST_SYNCS["wavefront"] = 0
