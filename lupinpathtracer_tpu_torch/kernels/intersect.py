@@ -56,6 +56,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from ..core import trace
 from ..core import vec3 as v3
 from ..core.vec3 import V3
 from . import bvh as bk
@@ -65,7 +66,8 @@ from . import packet
 F32_MAX = dk.F32_MAX
 
 # Host syncs of the wavefront's round loops (each loop condition reads a
-# device value). A measurement counter: set to 0 before a run, read after.
+# device value, through core/trace.py's `sync`). A measurement counter: set
+# to 0 before a run, read after.
 HOST_SYNCS = {"wavefront": 0}
 
 
@@ -476,11 +478,6 @@ def _wavefront_tri_matrix(scene, W=None):
     return W
 
 
-def _sync(flag: torch.Tensor) -> bool:
-    HOST_SYNCS["wavefront"] += 1
-    return bool(flag)
-
-
 def _pad(x, n, fill):
     if n == 0:
         return x
@@ -558,13 +555,13 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
 
     C = min(Bp, wf["C"])
     if Bp > C:
-        while _sync((c["sp"] > 0).sum() > C):
+        while trace.sync(HOST_SYNCS, "wavefront", (c["sp"] > 0).sum() > C):
             c = round_(c, rop, rdp, wf["Q"])
 
     arange_b = torch.arange(Bp, device=dev)
     arange_c = torch.arange(C, device=dev)
     keys_1d = [k for k in c if k != "stack"]
-    while _sync((c["sp"] > 0).any()):
+    while trace.sync(HOST_SYNCS, "wavefront", (c["sp"] > 0).any()):
         pending = c["sp"] > 0
         n_pend = torch.cumsum(pending.to(torch.int64), 0)
         slot = torch.where(pending, n_pend - 1, C)

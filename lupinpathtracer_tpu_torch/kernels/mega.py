@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..core import trace
 from ..core.device import on_cpu
 from ..core.types import PathtraceType
 
@@ -122,62 +123,65 @@ def _launch(scene, W4, pixel_idx, gx, gy, resolution, cam, is_ortho,
             accum_counter, rng_seed, spp, ptype, max_bounces, max_radiance,
             eps, sample_offset, lib=None):
     """The kernel's launch, through `lib` if given (another build of
-    csrc/mega.cu: tools/prof_mega.py's occupancy sweep)."""
+    csrc/mega.cu: tools/prof_mega.py's occupancy sweep); up to the launch
+    call's return, the `b3.launch` span of core/trace.py."""
 
-    from ..core.vec3 import V3
-    from ..render.camera import camera_scalars
-    from . import cuda_build
-    from .bvh import pair_table
+    with trace.span("b3.launch"):
+        from ..core.vec3 import V3
+        from ..render.camera import camera_scalars
+        from . import cuda_build
+        from .bvh import pair_table
 
-    dev = W4.device
-    for x in (pixel_idx, gx, gy, scene.wt_attr):
-        if x.device != dev:
-            raise ValueError("all inputs must be on the scene's device")
-    if W4.dtype != torch.float32:
-        raise TypeError("W4 must be float32")
-    T = scene.num_world_tris
-    if W4.shape != (4, 10, T):
-        raise ValueError(f"W4 must be (4, 10, {T}), got {tuple(W4.shape)}")
-    Wp, lt = pair_table(W4), _light_table(scene)
-    A = scene.wt_attr.contiguous()
-    c = camera_scalars(cam["cam_transform"], cam["lens"], cam["film"],
-                       cam["aspect"], cam["focus"], cam["aperture"], resolution)
-    nl = 0 if scene.lights_empty else scene.num_lights
-    p = _Params(
-        cam=(ctypes.c_float * 12)(*[v for row in c["m"] for v in row]),
-        lens=c["lens"], film_w=c["film_w"], film_h=c["film_h"],
-        focus=c["focus"], aperture=c["aperture"], res_x=c["res_x"],
-        res_y=c["res_y"], eps=float(eps), max_radiance=float(max_radiance),
-        ortho_scale=c["ortho_scale"],
-        accum=int(accum_counter) & 0xFFFFFFFF, seed=int(rng_seed) & 0xFFFFFFFF,
-        sample_offset=int(sample_offset), spp=int(spp),
-        max_bounces=int(max_bounces),
-        use_nee=int(int(ptype) == int(PathtraceType.STANDARD)),
-        is_ortho=int(bool(is_ortho)), n_tris=T, a_stride=A.shape[1],
-        num_lights=nl, n_light_tris=lt.shape[0] if nl else 0,
-        type_mask=sum(1 << t for t in scene.present_mat_types),
-        n_pix=pixel_idx.shape[0],
-    )
-    tabs = [scene.la_thresh.contiguous(), scene.la_alias.contiguous(),
-            scene.light_alias_offset.contiguous(),
-            scene.light_alias_size.contiguous(),
-            scene.light_tri_offset.contiguous()]
-    B = pixel_idx.shape[0]
-    acc = [torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)]
-    n_traced = torch.empty(B, dtype=torch.int32, device=dev)
-    if lib is None:
-        lib = cuda_build.load("mega")
-    fn = lib.lupin_mega_pathtrace
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 16
+        dev = W4.device
+        for x in (pixel_idx, gx, gy, scene.wt_attr):
+            if x.device != dev:
+                raise ValueError("all inputs must be on the scene's device")
+        if W4.dtype != torch.float32:
+            raise TypeError("W4 must be float32")
+        T = scene.num_world_tris
+        if W4.shape != (4, 10, T):
+            raise ValueError(f"W4 must be (4, 10, {T}), got {tuple(W4.shape)}")
+        Wp, lt = pair_table(W4), _light_table(scene)
+        A = scene.wt_attr.contiguous()
+        c = camera_scalars(cam["cam_transform"], cam["lens"], cam["film"],
+                           cam["aspect"], cam["focus"], cam["aperture"], resolution)
+        nl = 0 if scene.lights_empty else scene.num_lights
+        p = _Params(
+            cam=(ctypes.c_float * 12)(*[v for row in c["m"] for v in row]),
+            lens=c["lens"], film_w=c["film_w"], film_h=c["film_h"],
+            focus=c["focus"], aperture=c["aperture"], res_x=c["res_x"],
+            res_y=c["res_y"], eps=float(eps), max_radiance=float(max_radiance),
+            ortho_scale=c["ortho_scale"],
+            accum=int(accum_counter) & 0xFFFFFFFF, seed=int(rng_seed) & 0xFFFFFFFF,
+            sample_offset=int(sample_offset), spp=int(spp),
+            max_bounces=int(max_bounces),
+            use_nee=int(int(ptype) == int(PathtraceType.STANDARD)),
+            is_ortho=int(bool(is_ortho)), n_tris=T, a_stride=A.shape[1],
+            num_lights=nl, n_light_tris=lt.shape[0] if nl else 0,
+            type_mask=sum(1 << t for t in scene.present_mat_types),
+            n_pix=pixel_idx.shape[0],
+        )
+        tabs = [scene.la_thresh.contiguous(), scene.la_alias.contiguous(),
+                scene.light_alias_offset.contiguous(),
+                scene.light_alias_size.contiguous(),
+                scene.light_tri_offset.contiguous()]
+        B = pixel_idx.shape[0]
+        acc = [torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)]
+        n_traced = torch.empty(B, dtype=torch.int32, device=dev)
+        if lib is None:
+            lib = cuda_build.load("mega")
+        fn = lib.lupin_mega_pathtrace
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 16
+        if B > 0:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = fn(ctypes.byref(p), pixel_idx.contiguous().data_ptr(),
+                        gx.contiguous().data_ptr(), gy.contiguous().data_ptr(),
+                        Wp.data_ptr(), A.data_ptr(), lt.data_ptr(),
+                        *[t.data_ptr() for t in tabs],
+                        *[a.data_ptr() for a in acc], n_traced.data_ptr(), stream)
     if B > 0:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(ctypes.byref(p), pixel_idx.contiguous().data_ptr(),
-                    gx.contiguous().data_ptr(), gy.contiguous().data_ptr(),
-                    Wp.data_ptr(), A.data_ptr(), lt.data_ptr(),
-                    *[t.data_ptr() for t in tabs],
-                    *[a.data_ptr() for a in acc], n_traced.data_ptr(), stream)
         cuda_build.check(rc, "mega_pathtrace_spp")
         LAUNCHES["mega_pathtrace_spp"] += 1
     return V3(*acc), n_traced

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..core import rng as rng_mod
+from ..core import trace
 from ..core import vec3 as v3
 from ..core.types import MAX_OPACITY_BOUNCES, PathtraceType
 from ..core.vec3 import V3
@@ -38,8 +39,8 @@ from .materials import (
 
 
 # Host syncs of the integrators' bounce loops (each loop condition reads a
-# device value). A measurement counter like intersect.HOST_SYNCS: set to 0
-# before a run, read after.
+# device value, through core/trace.py's `sync`). A measurement counter like
+# intersect.HOST_SYNCS: set to 0 before a run, read after.
 HOST_SYNCS = {"bounce_loop": 0}
 
 
@@ -282,8 +283,7 @@ class _Path:
     def running(self, max_bounces) -> bool:
         if self.regen is None and self.bounce > max_bounces:
             return False
-        HOST_SYNCS["bounce_loop"] += 1
-        return bool(self.alive.any())
+        return trace.sync(HOST_SYNCS, "bounce_loop", self.alive.any())
 
     def volume_toggle(self, scene, ctx, surf, alive, in_volume, mp, normal,
                       outgoing, incoming, pos_vol, weight, state, use_nee):

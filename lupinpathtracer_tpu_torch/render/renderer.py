@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core import rng as rng_mod
+from ..core import trace
 from ..core import vec3 as v3
 from ..core.device import resolve_device
 from ..core.types import (
@@ -44,6 +45,10 @@ from ..core.types import (
 from ..kernels import intersect, mega
 from . import integrators
 from .materials import compute_shading_normal, get_material_point, is_mat_delta
+
+# Host syncs of the dispatch: the read of stats["rays"]. A measurement
+# counter like intersect.HOST_SYNCS: set to 0 before a run, read after.
+HOST_SYNCS = {"rays": 0}
 
 
 def _tile_geometry(image_shape, desc: PathtraceDesc):
@@ -154,7 +159,8 @@ def _render_pathtrace(scene, image, cam, origin_x, origin_y, accum_counter,
             streams=_streams(spp),
         )
     if stats is not None:
-        stats["rays"] = stats.get("rays", 0) + int(n_traced.sum())
+        stats["rays"] = stats.get("rays", 0) + trace.sync(
+            HOST_SYNCS, "rays", n_traced.sum(), int)
     color = v3.to_rows(acc / float(spp))
     return _accumulate_and_store(image, color, gx, gy, accum_counter,
                                  accumulate, full_frame=(tw, th) == (W, H))
@@ -311,8 +317,15 @@ def pathtrace_scene(scene, image, desc: PathtraceDesc,
     must lie on one device. With a `stats` dict, adds the dispatch's traced
     ray segments (the sum of n_traced) to stats["rays"]; this is a
     measurement hook (the JAX API has no such argument) and costs one
-    device-to-host sync per dispatch, so leave it None otherwise."""
+    device-to-host sync per dispatch (HOST_SYNCS["rays"]), so leave it None
+    otherwise. The call is the `dispatch` span of core/trace.py."""
 
+    with trace.span(trace.DISPATCH):
+        return _pathtrace_scene(scene, image, desc, baked, stats)
+
+
+def _pathtrace_scene(scene, image, desc: PathtraceDesc,
+                     baked: BakedPathtraceParams, stats: dict | None):
     scene, tile_wh, (tx, ty) = _dispatch_setup(scene, image, desc, baked)
 
     def one(tile_wh, tx, ty, image):
