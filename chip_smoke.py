@@ -6,7 +6,11 @@ Builds the port's CUDA kernels from lupinpathtracer_tpu_torch/csrc, holds
 each against its plain PyTorch version on the card, and drives the port's
 main paths through its entry points:
 - dense route: the progressive Cornell-box render, 512x512, 8 bounces,
-  64 spp per accumulation (kernel B3; its warp efficiency from n_traced),
+  64 spp per accumulation (kernel B3, each dispatch one launch of its
+  dispatch mode; at those shapes the dispatch mode's stored image and
+  segment count against the plain route, pathtrace_spp and the blend, and
+  the acc mode's sums against pathtrace_spp, with its warp efficiency from
+  n_traced),
   the DIRECT wavefront (B2, every B2 launch of one accumulation replayed
   against its plain version: tools/replay.py) and a closest-hit query
   (B1), and a 32x32 render against the repo's golden; B3 also against its
@@ -207,6 +211,26 @@ def compare_paths(acc_k, nt_k, acc_p, nt_p):
     res = dict(n_traced_equal_share=share, acc_max_abs_err=err,
                acc_within_tol=ok, mean_rel_diff=rel_mean)
     assert share >= 0.999 and ok and rel_mean <= 0.005, res
+    return res
+
+
+def compare_dispatch(img_k, count_k, img_p, nt_p):
+    """Holds B3's dispatch mode (the stored image, the segment count)
+    against the plain route (pathtrace_spp, then _accumulate_and_store):
+    the count within 1e-4 of the plain n_traced sum, >= 99.9% of the
+    image's values within rtol 2e-4 / atol 2e-5 (compare_paths' tolerance),
+    the image mean within 0.5%."""
+
+    count_p = int(nt_p.sum())
+    gap = abs(count_k - count_p) / max(count_p, 1)
+    d = (img_k - img_p).abs()
+    share = float((d <= 2e-5 + 2e-4 * img_p.abs()).float().mean())
+    mk, mp_ = float(img_k.mean()), float(img_p.mean())
+    rel_mean = abs(mk - mp_) / max(abs(mp_), 1e-12)
+    res = dict(segments=count_k, plain_segments=count_p, segments_gap=gap,
+               within_tol_share=share, max_abs_err=float(d.max()),
+               mean_rel_diff=rel_mean)
+    assert gap <= 1e-4 and share >= 0.999 and rel_mean <= 0.005, res
     return res
 
 
@@ -2269,13 +2293,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.core import rng as rng_mod
+    from lupinpathtracer_tpu_torch.core import vec3 as v3
     from lupinpathtracer_tpu_torch.core.vec3 import V3
     from lupinpathtracer_tpu_torch.io import builtin
     from lupinpathtracer_tpu_torch.kernels import cuda_build, intersect, mega
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.render.renderer import (
-        _camera_args, _pixel_batch)
+        _accumulate_and_store, _camera_args, _pixel_batch)
     from lupinpathtracer_tpu_torch.tools import replay
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2366,8 +2391,9 @@ def main() -> int:
     img = lt.render_progressive(scene, desc, baked, 512, 512, 4, device=dev,
                                  stats=stats)
     wall = time.perf_counter() - t0
-    launches_b3 = mega.LAUNCHES["mega_pathtrace_spp"]
-    assert launches_b3 > 0 and np.isfinite(img).all() and img.mean() > 0
+    launches_b3 = mega.LAUNCHES["mega_dispatch"]
+    assert launches_b3 > 0 and launches_b3 == mega.LAUNCHES["mega_pathtrace_spp"]
+    assert np.isfinite(img).all() and img.mean() > 0
     assert dk.LAUNCHES["dense_closest_hit_attrs"] == 0
     emit("main_path_mega", scene="cornell", width=512, height=512, bounces=8,
          spp=64, accumulations=4, wall_s=wall, rays=stats["rays"],
@@ -2454,16 +2480,41 @@ def main() -> int:
     pix = gy * 512 + gx
     b3_args = (pix, gx, gy, (512.0, 512.0), cam, False, 0, 0, 64,
                int(lt.PathtraceType.STANDARD), 8, 100.0)
+    before = mega.LAUNCHES["mega_pathtrace_spp"]
     t_b3, (acc_k, nt), by3 = kernel_ms(
         lambda: mega.mega_pathtrace_spp(scene, W, *b3_args, eps),
         "mega_kernel", 3)
+    launches_b3_acc = mega.LAUNCHES["mega_pathtrace_spp"] - before
     ctx = integrators.make_ctx(scene, eps)
     p_b3, (acc_p, nt_p) = cuda_ms(
         lambda: integrators.pathtrace_spp(scene, ctx, *b3_args), 1)
     res_b3 = compare_paths(acc_k, nt, acc_p, nt_p)
+    # B3's dispatch mode, the main path's launch: one dispatch of the
+    # progressive render at its shapes, blending into a previous image
+    # (counter 3), against the plain route on the same inputs.
+    prev = torch.rand((512, 512, 3), generator=torch.Generator().manual_seed(5)).to(dev)
+    d_counter = 3
+    t_b3d, (img_k, cnt_k), by3d = kernel_ms(
+        lambda: mega.mega_dispatch(scene, prev, cam, False, (0, 0), (512, 512),
+                                   d_counter, 0, 64, lt.PathtraceType.STANDARD, 8,
+                                   100.0, eps, True, True),
+        "mega_kernel", 3)
+    cnt_k = int(cnt_k)
+    d_args = (pix, gx, gy, (512.0, 512.0), cam, False, d_counter, 0, 64,
+              int(lt.PathtraceType.STANDARD), 8, 100.0)
+
+    def plain_dispatch():
+        acc, n_tr = integrators.pathtrace_spp(scene, ctx, *d_args)
+        return _accumulate_and_store(prev, v3.to_rows(acc / 64.0), gx, gy, d_counter,
+                                     True, full_frame=True), n_tr
+
+    p_b3d, (img_p, nt_dp) = plain_ms(plain_dispatch)
+    res_b3d = compare_dispatch(img_k, cnt_k, img_p, nt_dp)
     emit("kernels_vs_plain_main_shapes", b1=res_b1, b2=res_b2, b2_sphere=res_b2s,
          b3=dict(pixels=B, spp=64, bounces=8, max_radiance=100.0,
-                 warp_efficiency=warp_efficiency(nt), **res_b3))
+                 warp_efficiency=warp_efficiency(nt), **res_b3),
+         b3_dispatch=dict(pixels=B, spp=64, bounces=8, max_radiance=100.0,
+                          counter=d_counter, accumulate=True, **res_b3d))
     segs = int(nt.sum())
     Tl = scene.lt_v0.shape[1]
     aw = scene.wt_attr.shape[1]
@@ -2489,15 +2540,20 @@ def main() -> int:
               "dense_intersect.cu", "lupinpathtracer_tpu/kernels/pallas_intersect.py:298",
               launches_b2s, res_b2s["max_abs_err"], t_b2s, p_b2s, bnd_b2s, by2s,
               launches_in="sphere-box timing"),
-        entry("B3 mega_pathtrace_spp", "mega.cu",
+        entry("B3 mega_pathtrace_spp (dispatch mode)", "mega.cu",
               "lupinpathtracer_tpu/kernels/pallas_mega.py:622", launches_b3,
-              res_b3["acc_max_abs_err"], t_b3, p_b3, bnd_b3, by3),
+              res_b3d["max_abs_err"], t_b3d, p_b3d, bnd_b3, by3d),
+        entry("B3 mega_pathtrace_spp (acc mode)", "mega.cu",
+              "lupinpathtracer_tpu/kernels/pallas_mega.py:622", launches_b3_acc,
+              res_b3["acc_max_abs_err"], t_b3, p_b3, bnd_b3, by3,
+              launches_in="acc-mode timing"),
     ]
     emit("timing_shapes", b1_rays=B, b2_rays=Bw, tris=T, b2_sphere_tris=Ts,
          b1_smem_bytes=dk.smem_bytes(T, False), b2_smem_bytes=dk.smem_bytes(T, True),
          threads_per_block=dk.THREADS, min_blocks_per_sm=dk.MIN_BLOCKS,
          b3_pixels=B, b3_spp=64,
-         b3_segments=segs, main_path_rays=rays_main, card=smi,
+         b3_segments=segs, b3_dispatch_segments=cnt_k, main_path_rays=rays_main,
+         card=smi,
          total_s=time.perf_counter() - t_start)
 
     # -- 7-10. the BVH route -----------------------------------------------

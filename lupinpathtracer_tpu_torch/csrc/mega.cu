@@ -61,6 +61,18 @@
 // semantics of the Pallas kernel (pallas_mega.py:27-32), not its
 // hand-split bf16 products; every sum keeps the plain version's order, so
 // the packing changes no bit of the result.
+//
+// Two modes, one path loop (the kernel's second template argument):
+// - acc mode (lupin_mega_pathtrace): the caller passes each lane's pixel id
+//   and coordinates and gets back the lane's sample sum and n_traced
+//   (integrators.pathtrace_spp's outputs; the sharded samples mode sums
+//   them across entries before it blends).
+// - dispatch mode (lupin_mega_dispatch): a whole dense render dispatch in
+//   one launch. A lane computes its pixel from its index and the tile
+//   (render/renderer.py::_pixel_batch's order), and after the path loop
+//   writes its pixel of the new image as renderer.py::_accumulate_and_store
+//   does (the mean, the clamp, the progressive blend) and, where asked,
+//   adds its n_traced to the dispatch's segment count.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +89,12 @@ struct Params {
   uint32_t accum, seed;
   int sample_offset, spp, max_bounces, use_nee, is_ortho, n_tris, a_stride,
       num_lights, n_light_tris, type_mask, n_pix;
+  // The dispatch mode only: the f32 factors of the store (the reciprocal of
+  // spp; the previous image's and the new color's blend weights), the
+  // tile's origin and width, the image's size, whether lanes take the
+  // 16x16-swizzled order, whether the store blends.
+  float inv_spp, keep, weight;
+  int tile_x, tile_y, tile_w, img_w, img_h, swizzle, blend;
 };
 
 namespace {
@@ -557,17 +575,64 @@ __device__ F3 clamp_radiance(F3 r, float max_radiance) {
   return mul(r, scale);
 }
 
+// The dispatch mode's pixel of a lane, in renderer.py::_pixel_batch's lane
+// order: 16x16 swizzled where both tile dims are multiples of 16
+// (p.swizzle), else row-major; px = gy * W + gx in i32.
+__device__ __forceinline__ void lane_pixel(const Params& p, int lane, uint32_t& px, int& gx,
+                                           int& gy) {
+  if (p.swizzle) {
+    const int t = lane >> 8, w = lane & 255, ntx = p.tile_w >> 4;
+    gx = p.tile_x + (t % ntx) * 16 + (w & 15);
+    gy = p.tile_y + (t / ntx) * 16 + (w >> 4);
+  } else {
+    gx = p.tile_x + lane % p.tile_w;
+    gy = p.tile_y + lane / p.tile_w;
+  }
+  px = (uint32_t)gy * (uint32_t)p.img_w + (uint32_t)gx;
+}
+
+// The dispatch mode's outputs.
+struct Store {
+  const float* prev;          // (H, W, 3) the image blended into, not written
+  float* out;                 // (H, W, 3) the new image
+  unsigned long long* count;  // the dispatch's segment count, zero before; null: none asked for
+  unsigned long long* clear;  // zeroed for the stream's next count (count's other slot)
+};
+
+// torch.clamp_min(x, 0) on the card: a NaN stays NaN, else fmaxf.
+__device__ __forceinline__ float clamp0(float x) { return isnan(x) ? x : fmaxf(x, 0.0f); }
+
+// renderer.py::_accumulate_and_store for one pixel, at flat index `pix` of
+// the image (-1: a lane past the image, in an edge tile, stores nothing):
+// color = clamp_min(acc * (1 / spp), 0), the f32 reciprocal multiply
+// PyTorch's CUDA division by a host scalar computes; blended,
+// clamp_min(prev * keep + color * weight, 0), each product rounded on its
+// own (-fmad=false).
+__device__ __forceinline__ void store_pixel(const Params& p, const Store& st, int pix, F3 acc) {
+  if (pix < 0) return;
+  const size_t i = 3 * (size_t)pix;
+  const float c[3] = {acc.x, acc.y, acc.z};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float col = clamp0(c[k] * p.inv_spp);
+    if (p.blend) col = clamp0(st.prev[i + k] * p.keep + col * p.weight);
+    st.out[i + k] = col;
+  }
+}
+
 // Dynamic shared memory: the light table (Tl x 48 B), then, with SMEM, the
 // triangle table (Tg x 640 B). At least 8 blocks per SM: the fastest
 // setting of tools/prof_mega.py's sweep (the note above), which rebuilds
-// this file with the second argument changed.
-template <bool SMEM>
+// this file with the second argument changed. DISPATCH selects the mode
+// (the note at the top): pix, gxs, gys and the acc outputs serve the acc
+// mode, st the dispatch mode.
+template <bool SMEM, bool DISPATCH>
 __global__ void __launch_bounds__(THREADS, 8)
 mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
             const int* __restrict__ gys, const float4* __restrict__ Wg,
             const float* __restrict__ A, Lights L, float* __restrict__ acc_x,
             float* __restrict__ acc_y, float* __restrict__ acc_z,
-            int* __restrict__ n_traced_out) {
+            int* __restrict__ n_traced_out, Store st) {
   extern __shared__ __align__(16) float4 tabs[];
   const int Tg = (p.n_tris + 3) / 4;
   const int nl4 = p.n_light_tris * (LIGHT_COLS / 4);
@@ -583,9 +648,20 @@ mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
 
   const int lane = blockIdx.x * THREADS + threadIdx.x;
   if (lane >= p.n_pix) return;
-  const uint32_t px = (uint32_t)pix[lane];
-  const int gx = gxs[lane];
-  const int gy = gys[lane];
+  int gx, gy;
+  uint32_t px;
+  int pix_out = -1;  // the dispatch mode's store index, held from here: its
+                     // exit needs no more (deriving it there from gx and gy
+                     // made the path loop 4.5% slower, PERF.md)
+  if constexpr (DISPATCH) {
+    lane_pixel(p, lane, px, gx, gy);
+    if (gx < p.img_w && gy < p.img_h) pix_out = (int)px;
+    if (st.clear != nullptr && lane == 0) *st.clear = 0;
+  } else {
+    px = (uint32_t)pix[lane];
+    gx = gxs[lane];
+    gy = gys[lane];
+  }
   const bool nee = p.use_nee != 0;
   const bool have_lights = p.num_lights > 0;
 
@@ -670,28 +746,58 @@ mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
     radiance = f3(0.0f, 0.0f, 0.0f);
     bounce = 0;
   }
-  acc_x[lane] = acc.x;
-  acc_y[lane] = acc.y;
-  acc_z[lane] = acc.z;
-  n_traced_out[lane] = n_traced;
+  if constexpr (DISPATCH) {
+    store_pixel(p, st, pix_out, acc);
+    // The segment count (renderer.py's stats["rays"]), one atomic per lane
+    // (the compiler aggregates a warp's): a warp reduction here, with or
+    // without a last-block finish, made the path loop 3-4% slower.
+    if (st.count != nullptr) atomicAdd(st.count, (unsigned long long)n_traced);
+  } else {
+    acc_x[lane] = acc.x;
+    acc_y[lane] = acc.y;
+    acc_z[lane] = acc.z;
+    n_traced_out[lane] = n_traced;
+  }
 }
 
-template <bool SMEM>
+template <bool SMEM, bool DISPATCH>
 int launch_mega(const Params& p, const int* pix, const int* gx, const int* gy,
                 const float4* Wg, const float* A, const Lights& L, float* acc_x,
-                float* acc_y, float* acc_z, int* n_traced, cudaStream_t stream) {
+                float* acc_y, float* acc_z, int* n_traced, const Store& st,
+                cudaStream_t stream) {
   const size_t smem = sizeof(float) * LIGHT_COLS * p.n_light_tris +
                       (SMEM ? sizeof(float4) * 40 * ((p.n_tris + 3) / 4) : 0);
   const int blocks = (p.n_pix + THREADS - 1) / THREADS;
-  mega_kernel<SMEM><<<blocks, THREADS, smem, stream>>>(
-      p, pix, gx, gy, Wg, A, L, acc_x, acc_y, acc_z, n_traced);
+  mega_kernel<SMEM, DISPATCH><<<blocks, THREADS, smem, stream>>>(
+      p, pix, gx, gy, Wg, A, L, acc_x, acc_y, acc_z, n_traced, st);
   return (int)cudaGetLastError();
+}
+
+// Either mode's launch: the tables' checks, the triangle table's place.
+template <bool DISPATCH>
+int launch(const Params* params, const int* pix, const int* gx, const int* gy,
+           const float* Wg, const float* A, const float* lt, const float* la_thresh,
+           const int* la_alias, const int* alias_offset, const int* alias_size,
+           const int* tri_offset, float* acc_x, float* acc_y, float* acc_z,
+           int* n_traced, const Store& st, void* stream) {
+  if ((((uintptr_t)Wg) | ((uintptr_t)lt)) & 15u) return (int)cudaErrorInvalidValue;
+  if (params->n_light_tris > 64) return (int)cudaErrorInvalidValue;  // the gate's
+  const Lights L{lt, la_thresh, la_alias, alias_offset, alias_size, tri_offset};
+  const float4* W4 = reinterpret_cast<const float4*>(Wg);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (params->n_tris <= TRI_SMEM_TRIS)
+    return launch_mega<true, DISPATCH>(*params, pix, gx, gy, W4, A, L, acc_x, acc_y,
+                                       acc_z, n_traced, st, s);
+  return launch_mega<false, DISPATCH>(*params, pix, gx, gy, W4, A, L, acc_x, acc_y,
+                                      acc_z, n_traced, st, s);
 }
 
 }  // namespace
 
 // Wg: the packed triangle table (ceil(n_tris / 4), 40, 4); lt: the packed
 // light table (n_light_tris, 12); both 16-byte aligned (kernels/mega.py).
+// The acc mode: per lane of the caller's pixel arrays its sample sum and
+// n_traced.
 extern "C" int lupin_mega_pathtrace(const Params* params, const int* pix,
                                     const int* gx, const int* gy, const float* Wg,
                                     const float* A, const float* lt,
@@ -700,14 +806,24 @@ extern "C" int lupin_mega_pathtrace(const Params* params, const int* pix,
                                     const int* tri_offset, float* acc_x,
                                     float* acc_y, float* acc_z, int* n_traced,
                                     void* stream) {
-  if ((((uintptr_t)Wg) | ((uintptr_t)lt)) & 15u) return (int)cudaErrorInvalidValue;
-  if (params->n_light_tris > 64) return (int)cudaErrorInvalidValue;  // the gate's
-  const Lights L{lt, la_thresh, la_alias, alias_offset, alias_size, tri_offset};
-  const float4* W4 = reinterpret_cast<const float4*>(Wg);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (params->n_tris <= TRI_SMEM_TRIS)
-    return launch_mega<true>(*params, pix, gx, gy, W4, A, L, acc_x, acc_y, acc_z,
-                             n_traced, st);
-  return launch_mega<false>(*params, pix, gx, gy, W4, A, L, acc_x, acc_y, acc_z,
-                            n_traced, st);
+  return launch<false>(params, pix, gx, gy, Wg, A, lt, la_thresh, la_alias,
+                       alias_offset, alias_size, tri_offset, acc_x, acc_y, acc_z,
+                       n_traced, Store{}, stream);
+}
+
+// The dispatch mode: the tile's pixels of `out` from `prev` (both (H, W, 3)
+// f32); with `count` non-null (zero before the launch) the dispatch's
+// segment count added there, and `clear`, the slot the stream's next count
+// uses, zeroed.
+extern "C" int lupin_mega_dispatch(const Params* params, const float* Wg,
+                                   const float* A, const float* lt,
+                                   const float* la_thresh, const int* la_alias,
+                                   const int* alias_offset, const int* alias_size,
+                                   const int* tri_offset, const float* prev,
+                                   float* out, unsigned long long* count,
+                                   unsigned long long* clear, void* stream) {
+  return launch<true>(params, nullptr, nullptr, nullptr, Wg, A, lt, la_thresh,
+                      la_alias, alias_offset, alias_size, tri_offset, nullptr,
+                      nullptr, nullptr, nullptr, Store{prev, out, count, clear},
+                      stream);
 }

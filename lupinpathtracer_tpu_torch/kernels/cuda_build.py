@@ -32,6 +32,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict = {}
+_bound: set = set()
 
 
 def _nvcc() -> str:
@@ -90,8 +91,11 @@ def build_all() -> dict:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if stale."""
+def load(name: str, bind=None) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if stale. `bind`,
+    the caller's declaration of the library's signatures (restype and
+    argtypes), is applied once, where the library is opened (or first
+    asked for with it)."""
 
     with _lock:
         lib = _libs.get(name)
@@ -100,6 +104,9 @@ def load(name: str) -> ctypes.CDLL:
                 _finish(name, _start(name))
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
+        if bind is not None and name not in _bound:
+            bind(lib)
+            _bound.add(name)
         return lib
 
 

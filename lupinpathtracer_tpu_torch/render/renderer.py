@@ -5,7 +5,8 @@ The counterpart of lupinpathtracer_tpu/render/renderer.py (the reference's
 pathtrace_scene, _falsecolor and _debug, renderer.rs:768-1040; the
 progressive blend, pathtracer.wgsl:279-288). A dispatch renders one tile
 (or the whole frame) as one flat ray batch. Path tracing: scenes that pass
-the megakernel gate run through kernel B3 (kernels/mega.py); the rest
+the megakernel gate run through kernel B3 (kernels/mega.py; on the card the
+whole dispatch, from pixel ids to the stored image, is one launch); the rest
 (MIS always) through the wavefront loop (render/integrators.py): dense
 scenes with kernel B2, BVH scenes, single-level and two-level (instanced),
 with kernels B4 (camera rays) and B5/B6/B7 (bounces). The falsecolor AOVs
@@ -136,34 +137,37 @@ def _accumulate_and_store(image, color, gx, gy, accum_counter: int,
 def _render_pathtrace(scene, image, cam, origin_x, origin_y, accum_counter,
                       rng_seed, ray_epsilon, max_radiance, tile_wh, spp,
                       max_bounces, ptype, is_ortho, accumulate, stats=None):
-    H, W = image.shape[:2]
-    tw, th = tile_wh
-    gx, gy = _pixel_batch(tw, th, origin_x, origin_y, image.device)
-    pixel_idx = gy * W + gx
-    resolution = (float(W), float(H))
-    ctx = integrators.make_ctx(scene, ray_epsilon)
-
-    # All spp in one wavefront with in-place path regeneration; scenes
-    # inside the gate take the fused megakernel (on the CPU its plain
-    # version is that same wavefront loop).
-    if mega.applicable(scene, ptype):
-        acc, n_traced = mega.mega_pathtrace_spp(
-            scene, ctx["W"], pixel_idx, gx, gy, resolution, cam, is_ortho,
+    if mega.applicable(scene, ptype) and image.is_cuda:
+        # On the card the whole dispatch is one B3 launch: the pixel ids,
+        # the blend and store and the segment count are its entry and exit.
+        out, rays = mega.mega_dispatch(
+            scene, image, cam, is_ortho, (origin_x, origin_y), tile_wh,
             accum_counter, rng_seed, spp, ptype, max_bounces, max_radiance,
-            ray_epsilon,
-        )
+            ray_epsilon, accumulate, count=stats is not None)
     else:
+        H, W = image.shape[:2]
+        tw, th = tile_wh
+        gx, gy = _pixel_batch(tw, th, origin_x, origin_y, image.device)
+        pixel_idx = gy * W + gx
+        resolution = (float(W), float(H))
+        ctx = integrators.make_ctx(scene, ray_epsilon)
+
+        # All spp in one wavefront with in-place path regeneration: B3's
+        # plain version for scenes inside the gate (here on the CPU), one
+        # stream as in B3.
         acc, n_traced = integrators.pathtrace_spp(
             scene, ctx, pixel_idx, gx, gy, resolution, cam, is_ortho,
             accum_counter, rng_seed, spp, ptype, max_bounces, max_radiance,
-            streams=_streams(spp),
+            streams=1 if mega.applicable(scene, ptype) else _streams(spp),
         )
+        rays = n_traced.sum()
+        out = _accumulate_and_store(image, v3.to_rows(acc / float(spp)), gx, gy,
+                                    accum_counter, accumulate,
+                                    full_frame=(tw, th) == (W, H))
     if stats is not None:
         stats["rays"] = stats.get("rays", 0) + trace.sync(
-            HOST_SYNCS, "rays", n_traced.sum(), int)
-    color = v3.to_rows(acc / float(spp))
-    return _accumulate_and_store(image, color, gx, gy, accum_counter,
-                                 accumulate, full_frame=(tw, th) == (W, H))
+            HOST_SYNCS, "rays", rays, int)
+    return out
 
 
 def _runtime_checks(scene, baked: BakedPathtraceParams):

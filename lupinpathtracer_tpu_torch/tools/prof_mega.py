@@ -13,8 +13,9 @@ build on the Cornell main path's launch (512x512 pixels, 64 spp, 8
 bounces, STANDARD), in turns.
 Every build computes the same function with the same operations: each
 output must equal the checkout's build bit for bit. One JSON line per
-value: the registers and spill bytes ptxas reports for both instantiations
-of mega_kernel (the triangle table in shared memory or read through L1),
+value: the registers and spill bytes ptxas reports for each instantiation
+of mega_kernel (the triangle table in shared memory or read through L1;
+the acc mode the sweep times, and the dispatch mode),
 the mean device time (torch.profiler) and the card's name and power
 limit. Needs a CUDA GPU and nvcc.
 """
@@ -48,15 +49,17 @@ VARIANTS = {f"min_blocks_{v}": () if _bound(v) == BOUND else ((BOUND, _bound(v))
 
 
 def usage(log: str) -> dict:
-    """{"smem" | "global": (registers, spill store bytes)} of the two
-    mega_kernel instantiations (the triangle table in shared memory or
-    read through L1) in a copy's ptxas output."""
+    """{"smem" | "global", + ".dispatch" for the dispatch mode: (registers,
+    spill store bytes)} of the mega_kernel instantiations (the triangle
+    table in shared memory or read through L1; the acc or the dispatch
+    mode) in a copy's ptxas output."""
 
     out = {}
     for name, use in ptxas_usage(log).items():
-        m = re.search(r"mega_kernelILb([01])E", name)
+        m = re.search(r"mega_kernelILb([01])E(?:Lb([01])E)?", name)
         if m:
-            out["smem" if m.group(1) == "1" else "global"] = use
+            key = "smem" if m.group(1) == "1" else "global"
+            out[key + (".dispatch" if m.group(2) == "1" else "")] = use
     return out
 
 
