@@ -17,6 +17,10 @@ main paths through its entry points:
   plain version on a box with a 520-triangle sphere (its triangle table
   read through L1), and B2 timed on that box too (556 triangles: bound by
   operations where the Cornell box's B2 is bound by its stores);
+- the BVH route's shading step (csrc/shade.cu) at the spd_tetra.spd512
+  cell's 262,144 lanes on SPD tetra at size factor 7: one accumulation
+  through the fused step against the PyTorch step (compare_paths), its
+  launches, their device time and its bound;
 - BVH route: the 2M-triangle synthetic terrain (bench.py's terrain2M),
   512x288, STANDARD, 8 bounces, 4 spp per accumulation (B4 on camera rays,
   B5/B6/B7 on every bounce batch), B4-B7 against their plain versions at
@@ -120,6 +124,14 @@ XFORM_OPS = 33  # ray to mesh space: origin 9 products + 9 sums, direction 9 + 6
 LEAF_FRAME_OPS = XFORM_OPS + 9 + 3  # B4 per leaf visit: + o x d, 3 reciprocals
 ROTATE_OPS = 2 * 15 + 8  # B7 per winner: two rotations, gn's length and scale
 IA_ROWS, IA_ROWS_NM = 16, 24  # B7's output rows (kernels/bvh.py)
+# The shading step's row: SPD tetra (lupin_bench's generator) at this size
+# factor, at the spd_tetra.spd512 cell's lanes (512x512 x 5 spp); the step's
+# work does not depend on the scene's size. Bytes every lane of a launch
+# reads and writes (the PCG state 8 + 8, the mask 1 + 1, the ray, weight
+# and radiance 48 + 48, the bounce 4 + 4), and a shaded lane's more (the
+# hit flag, distance, normal and material id 21, n_bounces 4 + 4).
+SHADE_SPD_SF = 7
+SHADE_LANE_BYTES, SHADE_HIT_BYTES = 122, 29
 # The launch replays' depth cut: every launch of one accumulation of 1 spp
 # (the main paths render 4 or 16 spp), which keeps the whole run near 420 s.
 REPLAY_SPP = 1
@@ -820,6 +832,98 @@ def entry(name, src, replaces, launches, err, ms, p_ms, bnd, timed_by,
                 max_abs_err=err, ms=ms, plain_ms=p_ms, bound_ms=bnd[0],
                 bound_by=bnd[1], library_ms=None, timed_by=timed_by,
                 launches_in=launches_in)
+
+
+def shade_phase(dev, smi, width=512, height=512, spp=5, bounces=8):
+    """The BVH route's shading step (kernels/shade.py, csrc/shade.cu) at the
+    spd_tetra.spd512 cell's shapes (262,144 lanes, 8 bounces, STANDARD) on
+    SPD tetra at SHADE_SPD_SF: one accumulation through the fused step
+    against the same accumulation through the PyTorch step (compare_paths);
+    its launches (one a loop iteration) and
+    their mean device ms (torch.profiler); the first iteration's launch and
+    PyTorch step timed alone; the bound, the bytes its lanes read and write
+    at 3.35 TB/s. Returns the kernels line's entry."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lupin_bench import port, scenes
+    from lupinpathtracer_tpu_torch.core.types import PathtraceType
+    from lupinpathtracer_tpu_torch.kernels import shade
+    from lupinpathtracer_tpu_torch.render import integrators, renderer
+
+    cfg = dict(scene=dict(generator="spd_tetra", args=dict(size_factor=SHADE_SPD_SF),
+                          two_level=False))
+    d = scenes.generate(cfg, 1)
+    ts, build_s = port.build(d, False, dev)
+    desc = port.path_desc(d["camera"], dict(integrator="STANDARD", max_radiance=100.0,
+                                            ray_epsilon=0.001), 12345)
+    cam = renderer._camera_args(desc)
+    gx, gy = renderer._pixel_batch(width, height, 0, 0, dev)
+    B = gx.shape[0]  # one lane a pixel: its samples regenerate in place
+    ctx = integrators.make_ctx(ts, float(np.float32(1e-3)))
+    std = PathtraceType.STANDARD
+    regen = dict(gx=gx, gy=gy, resolution=(float(width), float(height)), cam=cam,
+                 is_ortho=False, pixel_idx=gy * width + gx, accum_counter=3,
+                 rng_seed=12345, spp=spp, max_radiance=100.0, sample_offset=0)
+
+    def accumulate():
+        return integrators.pathtrace_spp(
+            ts, ctx, regen["pixel_idx"], gx, gy, regen["resolution"], cam, False, 3,
+            12345, spp, std, bounces, 100.0)
+
+    assert shade.applicable(ts, std, regen, gx)
+    accumulate()  # builds the kernel
+    torch.cuda.synchronize()
+    l0, s0 = shade.LAUNCHES["shade"], dict(integrators.SHADE_STEPS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        acc_k, nt_k = accumulate()
+        torch.cuda.synchronize()
+    launches = shade.LAUNCHES["shade"] - l0
+    assert launches == integrators.SHADE_STEPS["fused"] - s0["fused"] > 0
+    assert integrators.SHADE_STEPS["plain"] == s0["plain"]
+    recs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "lupin_shade_kernel(" in e.name]  # the steps, not the first rays
+    timed_by = "device_records" if len(recs) == launches else "events"
+    saved = shade.applicable
+    shade.applicable = lambda *args: False
+    try:
+        t_plain_acc, (acc_p, nt_p) = cuda_ms(accumulate, 1)
+    finally:
+        shade.applicable = saved
+    res = compare_paths(acc_k, nt_k, acc_p, nt_p)
+
+    # The first iteration alone: the launch from a fresh copy of the
+    # state each time, and the PyTorch step once.
+    state = integrators.rng_mod.init_state(regen["pixel_idx"], 3, 12345, 0)
+    state, ro, rd = integrators._camera_ray_from(regen, state)
+    p = integrators._Path(ts, ctx, ro, rd, state, regen)
+    step = shade.Step(ts, ctx, p, std, bounces)
+    keep = [t.clone() for t in (step.f, step.c, step.state, step.alive)]
+    hit_lanes = int((p.alive & p.hit.hit).sum())
+
+    def first_launch():
+        for t, k in zip((step.f, step.c, step.state, step.alive), keep):
+            t.copy_(k)
+        step(p)
+
+    first_ms, _, first_by = kernel_ms(first_launch, "lupin_shade_kernel(", 20)
+    for t, k in zip((step.f, step.c, step.state, step.alive), keep):
+        t.copy_(k)
+    p_ms, _ = plain_ms(lambda: step._plain(p))
+    mean_ms = sum(recs) / max(len(recs), 1) / 1e3
+    first_bytes = B * SHADE_LANE_BYTES + hit_lanes * SHADE_HIT_BYTES
+    emit("shade_step", scene=f"spd_tetra SF {SHADE_SPD_SF}", triangles=ts.num_world_tris,
+         build_s=build_s, lanes=B, spp=spp, launches_per_accum=launches,
+         device_ms_per_accum=sum(recs) / 1e6, mean_launch_ms=mean_ms, timed_by=timed_by,
+         first_launch_ms=first_ms, first_timed_by=first_by, first_hit_lanes=hit_lanes,
+         first_bound_ms=bound_ms(0.0, first_bytes)[0], plain_step_ms=p_ms,
+         plain_accum_ms=t_plain_acc, segments=int(nt_k.sum()), card=smi, **res)
+    return entry("shade_step (spd_tetra.spd512 shapes, mean per launch)", "shade.cu",
+                 "render/integrators.py::_pathtrace_snd's PyTorch step (no Pallas site)",
+                 launches, res["acc_max_abs_err"], mean_ms, p_ms,
+                 bound_ms(0.0, B * SHADE_LANE_BYTES), timed_by,
+                 launches_in="one accumulation")
 
 
 def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
@@ -2555,6 +2659,9 @@ def main() -> int:
          b3_segments=segs, b3_dispatch_segments=cnt_k, main_path_rays=rays_main,
          card=smi,
          total_s=time.perf_counter() - t_start)
+
+    # -- 6b. the BVH route's shading step at the spd cell's shapes -----------
+    kernels.append(shade_phase(dev, smi))
 
     # -- 7-10. the BVH route -----------------------------------------------
     bvh_kernels, terrain_state, terrain_cams, terrain_cpu = bvh_phases(

@@ -56,6 +56,9 @@
 //   segments; on the Cornell main path the warps' efficiency (the sum of
 //   n_traced over 32 x the sum of each warp's largest) is 90% (chip_smoke
 //   prints it), so pixels are not handed to threads dynamically.
+// The per-lane code after the closest hit (materials, BSDF, lights, the
+// camera, PCG) is shade_common.cuh's, shared with the BVH route's shading
+// step (shade.cu).
 // Everything is f32 with separately rounded multiplies and adds
 // (-fmad=false), IEEE division and square root, i.e. the `precise=True`
 // semantics of the Pallas kernel (pallas_mega.py:27-32), not its
@@ -78,6 +81,7 @@
 #include <stdint.h>
 
 #include "dense_hit.cuh"
+#include "shade_common.cuh"
 #include "tri_test.cuh"
 
 // Scalar arguments, mirrored by kernels/mega.py::_Params. Outside the
@@ -99,136 +103,13 @@ struct Params {
 
 namespace {
 
-constexpr float F32_MAX = 3.4028235e38f;
-constexpr float PI_F = 3.14159265358979323846f;
-constexpr float TWO_PI_F = 6.28318530717958647692f;  // float(2 * pi)
-constexpr float MIN_ROUGHNESS = (float)(0.03 * 0.03);
 constexpr int THREADS = 128;
 // Largest triangle table staged in shared memory (20 KB).
 constexpr int TRI_SMEM_TRIS = 128;
-constexpr int LIGHT_COLS = 12;  // v0.xyz, area, e1.xyz, 0, e2.xyz, 0
 
-// Material types (core/types.py) and packed attribute columns
-// (kernels/dense_intersect.py ATTR_*).
-constexpr int MATTE = 0, GLOSSY = 1, REFLECTIVE = 2, TRANSPARENT = 3,
-              REFRACTIVE = 4, VOLUMETRIC = 6, GLTFPBR = 7;
-constexpr int A_N0 = 0, A_N1 = 3, A_N2 = 6, A_MAT_COLOR = 37,
-              A_MAT_EMISSION = 41, A_MAT_TYPE = 47, A_MAT_ROUGHNESS = 48,
-              A_MAT_METALLIC = 49, A_MAT_IOR = 50;
-
-struct F3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ F3 f3(float x, float y, float z) { return {x, y, z}; }
-__device__ __forceinline__ F3 add(F3 a, F3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ F3 sub(F3 a, F3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ F3 mul(F3 a, F3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
-__device__ __forceinline__ F3 mul(F3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ F3 neg(F3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ float dot(F3 a, F3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ F3 cross(F3 a, F3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ bool all_zero(F3 a) { return a.x == 0.0f && a.y == 0.0f && a.z == 0.0f; }
-__device__ __forceinline__ bool is_finite3(F3 a) {
-  return isfinite(a.x) && isfinite(a.y) && isfinite(a.z);
-}
-// torch.clamp_min / clamp_max / maximum semantics: a NaN stays NaN.
-__device__ __forceinline__ float cmin_lo(float x, float lo) { return x < lo ? lo : x; }
-__device__ __forceinline__ float cmax_hi(float x, float hi) { return x > hi ? hi : x; }
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return cmax_hi(cmin_lo(x, lo), hi);
-}
-__device__ __forceinline__ float nanmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : (a > b ? a : b);
-}
-__device__ __forceinline__ float max_comp(F3 a) { return nanmax(a.x, nanmax(a.y, a.z)); }
-__device__ __forceinline__ float zero_nonfinite(float x) { return isfinite(x) ? x : 0.0f; }
-__device__ __forceinline__ F3 normalize(F3 a) {
-  const float n = cmin_lo(sqrtf(dot(a, a)), 1e-20f);
-  return {a.x / n, a.y / n, a.z / n};
-}
-
-// ---------------------------------------------------------------- PCG32 ----
-// core/rng.py: same constants, same output permutation, same u32 -> f32
-// mapping through the i32 reinterpretation.
-
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x = x ^ (x >> 17);
-  x = x * 0xED5AD4BBu;
-  x = x ^ (x >> 11);
-  x = x * 0xAC4C1B51u;
-  x = x ^ (x >> 15);
-  x = x * 0x31848BABu;
-  x = x ^ (x >> 14);
-  return x;
-}
-
-__device__ __forceinline__ uint32_t init_state(uint32_t pix, uint32_t accum,
-                                               uint32_t seed, uint32_t sample) {
-  return hash_u32((pix * 19349663u) ^ (accum * 83492791u) ^
-                  (seed * 73856093u) ^ (sample * 2654435769u));
-}
-
-__device__ __forceinline__ float next_f32(uint32_t& s) {
-  s = s * 747796405u + 2891336453u;
-  uint32_t word = ((s >> ((s >> 28) + 4u)) ^ s) * 277803737u;
-  word = (word >> 22) ^ word;
-  const int wi = (int)word;
-  float f = (float)wi;
-  if (wi < 0) f = f + 4294967296.0f;
-  return f / 4294967296.0f;  // 4294967295 rounds to 2^32 in f32
-}
-
-// --------------------------------------------------------------- camera ----
-// render/camera.py::compute_camera_ray.
-
-__device__ void camera_ray(const Params& p, int gx, int gy, uint32_t& s,
-                           F3& ro_w, F3& rd_w) {
-  const float ox = next_f32(s) - 0.5f;
-  const float oy = next_f32(s) - 0.5f;
-  const float px = (float)gx + 0.5f;
-  const float py = p.res_y - (float)gy + 0.5f;
-  const float u = (px + ox) / p.res_x;
-  const float v = (py + oy) / p.res_y;
-  // next_in_disk
-  const float rx = next_f32(s);
-  const float ry = next_f32(s);
-  const float r = sqrtf(ry);
-  const float phi = TWO_PI_F * rx;
-  const float dx = cosf(phi) * r;
-  const float dy = sinf(phi) * r;
-  F3 ro, rd;
-  if (p.is_ortho) {
-    const float qx = p.film_w * (0.5f - u) * p.ortho_scale;
-    const float qy = p.film_h * (0.5f - v) * p.ortho_scale;
-    const F3 e = f3(-qx + dx * p.aperture / 2.0f, -qy + dy * p.aperture / 2.0f, 0.0f);
-    const F3 q = f3(-qx, -qy, -p.focus);
-    F3 d = normalize(sub(q, e));
-    ro = e;
-    rd = f3(d.x, d.y, -d.z);
-  } else {
-    const float qx = p.film_w * (0.5f - u);
-    const float qy = p.film_h * (0.5f - v);
-    const float qz = p.lens;
-    const float qlen = sqrtf(qx * qx + qy * qy + qz * qz);
-    const F3 look = f3(-qx / qlen, -qy / qlen, -qz / qlen);
-    const F3 lp = f3(dx * p.aperture / 2.0f, dy * p.aperture / 2.0f, 0.0f);
-    const float fscale = p.focus / fabsf(look.z);
-    const F3 fp = mul(look, fscale);
-    F3 d = normalize(sub(fp, lp));
-    ro = lp;
-    rd = f3(d.x, d.y, -d.z);
-  }
-  const float* m = p.cam;
-  ro_w = f3(m[0] * ro.x + m[1] * ro.y + m[2] * ro.z + m[3],
-            m[4] * ro.x + m[5] * ro.y + m[6] * ro.z + m[7],
-            m[8] * ro.x + m[9] * ro.y + m[10] * ro.z + m[11]);
-  rd_w = normalize(f3(m[0] * rd.x + m[1] * rd.y + m[2] * rd.z,
-                      m[4] * rd.x + m[5] * rd.y + m[6] * rd.z,
-                      m[8] * rd.x + m[9] * rd.y + m[10] * rd.z));
-}
+// Packed attribute columns (kernels/dense_intersect.py ATTR_*): the vertex
+// normals and the material block (shade_common.cuh's M_* from there).
+constexpr int A_N0 = 0, A_N1 = 3, A_N2 = 6, A_MAT_COLOR = 37;
 
 // ---------------------------------------------------------- closest hit ----
 // kernels/dense_intersect.py (B2's arithmetic): R = [d, o x d, o, 1] dotted
@@ -251,41 +132,10 @@ __device__ __forceinline__ void closest_hit(const float4* __restrict__ Wg, int T
 }
 
 // ------------------------------------------------------------- material ----
-// render/materials.py, attrs route, inside the mega gate: no textures,
-// vertex colours, normal maps or volumes.
-
-struct Mat {
-  int type;
-  F3 emission, color;
-  float roughness, metallic, ior;
-};
+// render/materials.py, attrs route: the winner's attribute row.
 
 __device__ Mat material_point(const float* __restrict__ a) {
-  Mat m;
-  m.type = (int)__ldg(a + A_MAT_TYPE);
-  m.emission = f3(__ldg(a + A_MAT_EMISSION), __ldg(a + A_MAT_EMISSION + 1),
-                  __ldg(a + A_MAT_EMISSION + 2));
-  m.color = f3(__ldg(a + A_MAT_COLOR), __ldg(a + A_MAT_COLOR + 1),
-               __ldg(a + A_MAT_COLOR + 2));
-  float rough = __ldg(a + A_MAT_ROUGHNESS);
-  rough = rough * rough;
-  const bool clamped = m.type == MATTE || m.type == GLTFPBR || m.type == GLOSSY;
-  if (clamped)
-    rough = clampf(rough, MIN_ROUGHNESS, 1.0f);
-  else if (m.type == VOLUMETRIC)
-    rough = 0.0f;
-  else if (rough < MIN_ROUGHNESS)
-    rough = 0.0f;
-  m.roughness = rough;
-  m.metallic = __ldg(a + A_MAT_METALLIC);
-  m.ior = __ldg(a + A_MAT_IOR);
-  return m;
-}
-
-__device__ bool is_delta(const Mat& m) {
-  const bool r0 = m.roughness == 0.0f;
-  return ((m.type == REFLECTIVE || m.type == REFRACTIVE || m.type == TRANSPARENT) && r0) ||
-         m.type == VOLUMETRIC;
+  return material_at(a + A_MAT_COLOR);
 }
 
 __device__ F3 shading_normal(const float* __restrict__ a, float u, float v) {
@@ -296,284 +146,7 @@ __device__ F3 shading_normal(const float* __restrict__ a, float u, float v) {
   return normalize(add(add(mul(n0, w), mul(n1, u)), mul(n2, v)));
 }
 
-// ----------------------------------------------------------------- BSDF ----
-// render/bsdf.py, the smooth lobes of the gate's material types.
-
-__device__ F3 flip_up(F3 n, F3 o) { return dot(n, o) <= 0.0f ? neg(n) : n; }
-
-__device__ F3 reflect(F3 w, F3 n) { return add(neg(w), mul(n, 2.0f * dot(n, w))); }
-
-__device__ bool same_hemisphere(F3 n, F3 o, F3 i) { return dot(n, o) * dot(n, i) >= 0.0f; }
-
-__device__ void basis_fromz(F3 v, F3& x, F3& y, F3& z) {
-  z = normalize(v);
-  const float sign = z.z < 0.0f ? -1.0f : 1.0f;
-  const float a = -1.0f / (sign + z.z);
-  const float b = z.x * z.y * a;
-  x = f3(1.0f + sign * z.x * z.x * a, sign * b, -sign * z.x);
-  y = f3(b, sign + z.y * z.y * a, -z.y);
-}
-
-__device__ F3 from_basis(F3 x, F3 y, F3 z, float lx, float ly, float lz) {
-  return add(add(mul(x, lx), mul(y, ly)), mul(z, lz));
-}
-
-__device__ float fresnel_dielectric(float eta, F3 n, F3 o) {
-  const float cosw = fabsf(dot(n, o));
-  const float sin2 = 1.0f - cosw * cosw;
-  const float eta2 = eta * eta;
-  const float cos2t = 1.0f - sin2 / eta2;
-  const float t0 = sqrtf(cmin_lo(cos2t, 0.0f));
-  const float t1 = eta * t0;
-  const float t2 = eta * cosw;
-  const float rs = (cosw - t1) / (cosw + t1);
-  const float rp = (t0 - t2) / (t0 + t2);
-  const float f = (rs * rs + rp * rp) / 2.0f;
-  return cos2t < 0.0f ? 1.0f : f;
-}
-
-__device__ F3 fresnel_schlick(F3 color, F3 n, F3 o) {
-  const float cosine = dot(n, o);
-  const float p = powf(clampf(1.0f - fabsf(cosine), 0.0f, 1.0f), 5.0f);
-  const F3 f = f3(color.x + (1.0f - color.x) * p, color.y + (1.0f - color.y) * p,
-                  color.z + (1.0f - color.z) * p);
-  return all_zero(color) ? f3(0.0f, 0.0f, 0.0f) : f;
-}
-
-__device__ F3 gltf_reflectivity(const Mat& m) {
-  const float r0 = ((m.ior - 1.0f) * (m.ior - 1.0f)) / ((m.ior + 1.0f) * (m.ior + 1.0f));
-  return f3(r0 * (1.0f - m.metallic) + m.color.x * m.metallic,
-            r0 * (1.0f - m.metallic) + m.color.y * m.metallic,
-            r0 * (1.0f - m.metallic) + m.color.z * m.metallic);
-}
-
-__device__ float microfacet_distribution(float rough, F3 n, F3 h) {
-  const float cosine = dot(n, h);
-  const float r2 = rough * rough;
-  const float c2 = cosine * cosine;
-  const float denom = c2 * r2 + 1.0f - c2;
-  const float d = r2 / (PI_F * denom * denom);
-  return cosine <= 0.0f ? 0.0f : d;
-}
-
-__device__ float shadowing1(float rough, F3 n, F3 h, F3 dir) {
-  const float cosine = dot(n, dir);
-  const float cosineh = dot(h, dir);
-  const float r2 = rough * rough;
-  const float c2 = cosine * cosine;
-  const float g = 2.0f * fabsf(cosine) /
-                  (fabsf(cosine) + sqrtf(cmin_lo(c2 - r2 * c2 + r2, 0.0f)));
-  return cosine * cosineh <= 0.0f ? 0.0f : g;
-}
-
-__device__ float shadowing(float rough, F3 n, F3 h, F3 o, F3 i) {
-  return shadowing1(rough, n, h, o) * shadowing1(rough, n, h, i);
-}
-
-__device__ F3 sample_microfacet(float rough, F3 n, float rx, float ry) {
-  const float phi = TWO_PI_F * rx;
-  const float theta = atanf(rough * sqrtf(ry / cmin_lo(1.0f - ry, 1e-12f)));
-  const float st = sinf(theta);
-  F3 x, y, z;
-  basis_fromz(n, x, y, z);
-  return normalize(from_basis(x, y, z, cosf(phi) * st, sinf(phi) * st, cosf(theta)));
-}
-
-__device__ float sample_microfacet_pdf(float rough, F3 n, F3 h) {
-  const float cosine = dot(n, h);
-  return cosine < 0.0f ? 0.0f : microfacet_distribution(rough, n, h) * cosine;
-}
-
-__device__ F3 sample_hemisphere_cos(F3 n, float rx, float ry) {
-  const float z = sqrtf(ry);
-  const float r = sqrtf(cmin_lo(1.0f - z * z, 0.0f));
-  const float phi = TWO_PI_F * rx;
-  F3 bx, by, bz;
-  basis_fromz(n, bx, by, bz);
-  return normalize(from_basis(bx, by, bz, r * cosf(phi), r * sinf(phi), z));
-}
-
-__device__ float sample_hemisphere_cos_pdf(F3 n, F3 d) {
-  const float cosw = dot(n, d);
-  return cosw <= 0.0f ? 0.0f : cosw / PI_F;
-}
-
-// The lobe a lane takes: its own type when the scene has it, else the
-// first present type (bsdf._dispatch: a select chain over present types).
-__device__ int lobe(int type, int mask) {
-  if (mask & (1 << type)) return type;
-  return __ffs(mask) - 1;
-}
-
-__device__ F3 sample_bsdfcos(const Mat& m, int mask, F3 n, F3 o, float rnl,
-                             float rx, float ry) {
-  const F3 zero = f3(0.0f, 0.0f, 0.0f);
-  if (m.roughness == 0.0f) return zero;
-  const F3 up = flip_up(n, o);
-  const int t = lobe(m.type, mask);
-  if (t == MATTE) return sample_hemisphere_cos(up, rx, ry);
-  float f;
-  if (t == GLOSSY) {
-    f = fresnel_dielectric(m.ior, up, o);
-  } else {  // GLTFPBR
-    const F3 fs = fresnel_schlick(gltf_reflectivity(m), up, o);
-    f = (fs.x + fs.y + fs.z) / 3.0f;
-  }
-  const F3 h = sample_microfacet(m.roughness, up, rx, ry);
-  F3 refl = reflect(o, h);
-  refl = same_hemisphere(up, o, refl) ? refl : zero;
-  const F3 diff = sample_hemisphere_cos(up, rx, ry);
-  return rnl < f ? refl : diff;
-}
-
-__device__ F3 eval_bsdfcos(const Mat& m, int mask, F3 n, F3 o, F3 i) {
-  const F3 zero = f3(0.0f, 0.0f, 0.0f);
-  if (m.roughness == 0.0f) return zero;
-  const bool masked = dot(n, i) * dot(n, o) <= 0.0f;
-  const int t = lobe(m.type, mask);
-  F3 out;
-  if (t == MATTE) {
-    out = mul(m.color, fabsf(dot(n, i)) / PI_F);
-  } else if (t == GLOSSY) {
-    const F3 up = flip_up(n, o);
-    const float f1 = fresnel_dielectric(m.ior, up, o);
-    const F3 h = normalize(add(i, o));
-    const float f = fresnel_dielectric(m.ior, h, i);
-    const float d = microfacet_distribution(m.roughness, up, h);
-    const float g = shadowing(m.roughness, up, h, o, i);
-    const float absin = fabsf(dot(up, i));
-    const float spec = f * d * g / (4.0f * dot(up, o) * dot(up, i)) * absin;
-    const float k = (1.0f - f1) / PI_F * absin;
-    out = f3(m.color.x * k + spec, m.color.y * k + spec, m.color.z * k + spec);
-  } else {  // GLTFPBR
-    const F3 refl = gltf_reflectivity(m);
-    const F3 up = flip_up(n, o);
-    const F3 f1 = fresnel_schlick(refl, up, o);
-    const F3 h = normalize(add(i, o));
-    const F3 f = fresnel_schlick(refl, h, i);
-    const float d = microfacet_distribution(m.roughness, up, h);
-    const float g = shadowing(m.roughness, up, h, o, i);
-    const float absin = fabsf(dot(up, i));
-    const float cosk = absin / PI_F;
-    const float sk = d * g / (4.0f * dot(up, o) * dot(up, i)) * absin;
-    const float dm = 1.0f - m.metallic;
-    out = f3(m.color.x * dm * (1.0f - f1.x) * cosk + f.x * sk,
-             m.color.y * dm * (1.0f - f1.y) * cosk + f.y * sk,
-             m.color.z * dm * (1.0f - f1.z) * cosk + f.z * sk);
-  }
-  if (masked) out = zero;
-  return f3(zero_nonfinite(out.x), zero_nonfinite(out.y), zero_nonfinite(out.z));
-}
-
-__device__ float sample_bsdfcos_pdf(const Mat& m, int mask, F3 n, F3 o, F3 i) {
-  if (m.roughness == 0.0f) return 0.0f;
-  const bool masked = dot(n, i) * dot(n, o) <= 0.0f;
-  const F3 up = flip_up(n, o);
-  const int t = lobe(m.type, mask);
-  float p;
-  if (t == MATTE) {
-    p = sample_hemisphere_cos_pdf(up, i);
-  } else {
-    const F3 h = normalize(add(o, i));
-    float f;
-    if (t == GLOSSY) {
-      f = fresnel_dielectric(m.ior, up, o);
-    } else {  // GLTFPBR
-      const F3 fs = fresnel_schlick(gltf_reflectivity(m), up, o);
-      f = (fs.x + fs.y + fs.z) / 3.0f;
-    }
-    p = f * sample_microfacet_pdf(m.roughness, up, h) / (4.0f * fabsf(dot(o, h))) +
-        (1.0f - f) * sample_hemisphere_cos_pdf(up, i);
-  }
-  if (masked) p = 0.0f;
-  return zero_nonfinite(p);
-}
-
-// --------------------------------------------------------------- lights ----
-// render/lights.py: uniform light pick, alias triangle pick, uniform point
-// on the triangle; the pdf is the exact sum over all light triangles.
-
-struct Lights {
-  const float* tab;  // (Tl, LIGHT_COLS) packed light table, staged per block
-  const float* thresh;
-  const int* alias;
-  const int* alias_offset;  // (L,)
-  const int* alias_size;
-  const int* tri_offset;
-};
-
-// Light triangle i's v0, e1, e2 and its light's area from the packed row.
-__device__ __forceinline__ void light_tri(const float* row, F3& v0, F3& e1,
-                                          F3& e2, float& area) {
-  const float4 a = *reinterpret_cast<const float4*>(row);
-  const float4 b = *reinterpret_cast<const float4*>(row + 4);
-  const float4 c = *reinterpret_cast<const float4*>(row + 8);
-  v0 = f3(a.x, a.y, a.z);
-  area = a.w;
-  e1 = f3(b.x, b.y, b.z);
-  e2 = f3(c.x, c.y, c.z);
-}
-
-__device__ F3 sample_light(const Params& p, const Lights& L, const float* lt,
-                           F3 pos, uint32_t& s) {
-  const int nl = p.num_lights;
-  const float r_pick = next_f32(s);
-  const int pick = min((int)(r_pick * (float)nl), nl - 1);
-  const float r_bin = next_f32(s);
-  const float r_thr = next_f32(s);
-  const float ra = next_f32(s);
-  const float rb = next_f32(s);
-  const int li = max(0, min(pick, nl - 1));
-  const int off = __ldg(L.alias_offset + li);
-  const int size = __ldg(L.alias_size + li);
-  const int idx = min((int)(r_bin * (float)size), size - 1);
-  const int gi = off + idx;
-  const int tri = r_thr >= __ldg(L.thresh + gi) ? __ldg(L.alias + gi) : idx;
-  const float sq = sqrtf(ra);
-  const float tu = 1.0f - sq;
-  const float tv = rb * sq;
-  const int gt = __ldg(L.tri_offset + li) + tri;
-  F3 v0, e1, e2;
-  float area;
-  light_tri(lt + (size_t)gt * LIGHT_COLS, v0, e1, e2, area);
-  const F3 q = add(add(v0, mul(e1, tu)), mul(e2, tv));
-  return normalize(sub(q, pos));
-}
-
-// intersect._ray_tri per light triangle, summed in triangle order.
-__device__ float lights_pdf(const Params& p, const float* lt, F3 pos, F3 inc) {
-  const int Tl = p.n_light_tris;
-  float pdf = 0.0f;
-  for (int i = 0; i < Tl; ++i) {
-    F3 v0, e1, e2;
-    float area;
-    light_tri(lt + i * LIGHT_COLS, v0, e1, e2, area);
-    const F3 n = cross(e1, e2);
-    const F3 rov0 = sub(pos, v0);
-    const F3 q = cross(rov0, inc);
-    const float det = dot(inc, n);
-    const float d = 1.0f / det;
-    const float u = d * -dot(q, e2);
-    const float v = d * dot(q, e1);
-    float t = d * -dot(n, rov0);
-    const bool valid = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t >= p.eps);
-    t = valid ? t : F32_MAX;
-    const F3 n_hat = normalize(n);
-    const float cos_theta = fabsf(dot(inc, n_hat));
-    const float term = (t * t) / cmin_lo(cos_theta * area, 1e-20f);
-    pdf = pdf + (valid ? term : 0.0f);
-  }
-  return pdf / (float)p.num_lights;
-}
-
 // ---------------------------------------------------------- the kernel ----
-
-__device__ F3 clamp_radiance(F3 r, float max_radiance) {
-  if (!is_finite3(r)) r = f3(0.0f, 0.0f, 0.0f);
-  const float peak = max_comp(r);
-  const float scale = peak > max_radiance ? max_radiance / cmin_lo(peak, 1e-20f) : 1.0f;
-  return mul(r, scale);
-}
 
 // The dispatch mode's pixel of a lane, in renderer.py::_pixel_batch's lane
 // order: 16x16 swizzled where both tile dims are multiples of 16
@@ -686,49 +259,8 @@ mega_kernel(Params p, const int* __restrict__ pix, const int* __restrict__ gxs,
       const float* a = A + (size_t)idx * p.a_stride;
       const Mat m = material_point(a);
       const F3 normal = shading_normal(a, u, v);
-      const F3 outgoing = neg(rd);
-      const F3 pos = add(ro, mul(rd, t));
-      radiance = add(radiance, mul(weight, m.emission));
-      const bool nd = !is_delta(m);
-
-      const float r_choice = next_f32(s);
-      const float rnl = next_f32(s);
-      const float rx = next_f32(s);
-      const float ry = next_f32(s);
-      const F3 bdir = sample_bsdfcos(m, p.type_mask, normal, outgoing, rnl, rx, ry);
-      F3 incoming;
-      float pdf;
-      if (nee) {
-        const F3 ldir = have_lights ? sample_light(p, L, lt, pos, s) : f3(0.0f, 0.0f, 0.0f);
-        incoming = r_choice < 0.5f ? bdir : ldir;
-        const float lp = have_lights ? lights_pdf(p, lt, pos, incoming) : 0.0f;
-        pdf = 0.5f * sample_bsdfcos_pdf(m, p.type_mask, normal, outgoing, incoming) +
-              0.5f * lp;
-      } else {
-        incoming = bdir;
-        pdf = sample_bsdfcos_pdf(m, p.type_mask, normal, outgoing, incoming);
-      }
-      const bool dead = all_zero(incoming);
-      const F3 f = eval_bsdfcos(m, p.type_mask, normal, outgoing, incoming);
-      const float pc = cmin_lo(pdf, 0.0f);
-      const F3 factor = f3(f.x / pc, f.y / pc, f.z / pc);
-      if (nd && dead) alive = false;
-      if (nd && !dead) weight = mul(weight, factor);
-      next_f32(s);  // delta draw (stream parity)
-      if (!nd) incoming = f3(0.0f, 0.0f, 0.0f);  // no delta lobes in the gate
-      if (alive) {
-        ro = pos;
-        rd = incoming;
-      }
-      alive = alive && !all_zero(weight) && is_finite3(weight);
-      const float rr = next_f32(s);
-      const bool rr_on = alive && bounce > 3;
-      const float survive = cmax_hi(max_comp(weight), 0.99f);
-      if (rr_on && rr >= survive) alive = false;
-      if (rr_on && rr < survive) {
-        const float sv = cmin_lo(survive, 1e-12f);
-        weight = f3(weight.x / sv, weight.y / sv, weight.z / sv);
-      }
+      shade_hit(p, L, lt, nee, have_lights, m, normal, t, bounce, s, ro, rd, weight,
+                radiance, alive);
     }
 
     const int bounce_next = bounce + 1;

@@ -42,15 +42,18 @@ from ..core.types import PathtraceType
 LAUNCHES = {"mega_pathtrace_spp": 0, "mega_dispatch": 0}
 
 MAX_LIGHT_TRIS = 64
-LIGHT_COLS = 12  # csrc/mega.cu: v0.xyz, area, e1.xyz, 0, e2.xyz, 0
+LIGHT_COLS = 12  # csrc/shade_common.cuh: v0.xyz, area, e1.xyz, 0, e2.xyz, 0
 
 
-def applicable(scene, ptype: int) -> bool:
-    """Static gate (pallas_mega.py:76-92)."""
+def in_gate(scene, ptype: int) -> bool:
+    """The features B3's per-lane code implements (csrc/shade_common.cuh),
+    all the scene and integrator may use: STANDARD or NAIVE, no alpha,
+    environments, volumes, delta materials, normal maps, vertex colours or
+    uv textures, at most MAX_LIGHT_TRIS light triangles. B3 (`applicable`)
+    and the BVH route's shading step (kernels/shade.py) share it."""
 
     return (
-        not scene.use_bvh
-        and not scene.instances_empty
+        not scene.instances_empty
         and not scene.has_alpha
         and scene.envs_empty
         and not scene.any_volumetric
@@ -61,6 +64,12 @@ def applicable(scene, ptype: int) -> bool:
         and int(ptype) in (int(PathtraceType.STANDARD), int(PathtraceType.NAIVE))
         and (scene.lights_empty or scene.lt_v0.shape[1] <= MAX_LIGHT_TRIS)
     )
+
+
+def applicable(scene, ptype: int) -> bool:
+    """Static gate (pallas_mega.py:76-92): a dense scene inside in_gate."""
+
+    return not scene.use_bvh and in_gate(scene, ptype)
 
 
 class _Params(ctypes.Structure):
@@ -143,19 +152,30 @@ def mega_pathtrace_spp(
                    max_radiance, eps, sample_offset)
 
 
+def light_tables(scene):
+    """(tensors, pointers) of the light tables B3 and the BVH route's
+    shading step read, built once and kept on the scene: the packed light
+    table and the alias tables, contiguous, in the entry points' order."""
+
+    cached = scene.__dict__.get("_light_tables")
+    if cached is None:
+        tabs = [_light_table(scene), scene.la_thresh.contiguous(),
+                scene.la_alias.contiguous(), scene.light_alias_offset.contiguous(),
+                scene.light_alias_size.contiguous(),
+                scene.light_tri_offset.contiguous()]
+        cached = scene.__dict__["_light_tables"] = (tabs, [t.data_ptr() for t in tabs])
+    return cached
+
+
 def _tables(scene):
-    """(tensors, pointers) of the launch's per-scene tables, built once and
-    kept on the scene: the attribute rows, the packed light table and the
-    alias tables, contiguous, in the entry points' order."""
+    """(tensors, pointers) of B3's per-scene tables, built once and kept on
+    the scene: the attribute rows, then light_tables."""
 
     cached = scene.__dict__.get("_mega_tables")
     if cached is None:
-        tabs = [scene.wt_attr.contiguous(), _light_table(scene),
-                scene.la_thresh.contiguous(), scene.la_alias.contiguous(),
-                scene.light_alias_offset.contiguous(),
-                scene.light_alias_size.contiguous(),
-                scene.light_tri_offset.contiguous()]
-        cached = scene.__dict__["_mega_tables"] = (tabs, [t.data_ptr() for t in tabs])
+        tabs, ptrs = light_tables(scene)
+        attr = scene.wt_attr.contiguous()
+        cached = scene.__dict__["_mega_tables"] = ([attr, *tabs], [attr.data_ptr(), *ptrs])
     return cached
 
 
@@ -166,7 +186,7 @@ def _base_params(scene, resolution, cam, is_ortho, spp, ptype, max_bounces,
 
     from ..render.camera import camera_scalars
 
-    tabs, _ = _tables(scene)
+    lt = light_tables(scene)[0][0]
     c = camera_scalars(cam["cam_transform"], cam["lens"], cam["film"],
                        cam["aspect"], cam["focus"], cam["aperture"], resolution)
     nl = 0 if scene.lights_empty else scene.num_lights
@@ -179,8 +199,8 @@ def _base_params(scene, resolution, cam, is_ortho, spp, ptype, max_bounces,
         spp=int(spp), max_bounces=int(max_bounces),
         use_nee=int(int(ptype) == int(PathtraceType.STANDARD)),
         is_ortho=int(bool(is_ortho)), n_tris=scene.num_world_tris,
-        a_stride=tabs[0].shape[1], num_lights=nl,
-        n_light_tris=tabs[1].shape[0] if nl else 0,
+        a_stride=scene.wt_attr.shape[1], num_lights=nl,
+        n_light_tris=lt.shape[0] if nl else 0,
         type_mask=sum(1 << t for t in scene.present_mat_types), n_pix=int(n_pix),
     )
 

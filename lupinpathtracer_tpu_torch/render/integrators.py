@@ -25,7 +25,7 @@ from ..core import trace
 from ..core import vec3 as v3
 from ..core.types import MAX_OPACITY_BOUNCES, PathtraceType
 from ..core.vec3 import V3
-from ..kernels import intersect
+from ..kernels import intersect, shade
 from . import bsdf, lights
 from .camera import compute_camera_ray
 from .materials import (
@@ -42,6 +42,12 @@ from .materials import (
 # device value, through core/trace.py's `sync`). A measurement counter like
 # intersect.HOST_SYNCS: set to 0 before a run, read after.
 HOST_SYNCS = {"bounce_loop": 0}
+
+# Iterations of the path loops by the route their shading took: "fused",
+# kernels/shade.py's step (one launch on the card); "plain", the PyTorch
+# step (_shade, and every iteration of the MIS loop). Counted whether or
+# not spans record, like HOST_SYNCS.
+SHADE_STEPS = {"fused": 0, "plain": 0}
 
 
 def make_ctx(scene, eps):
@@ -173,6 +179,14 @@ def _camera_ray_from(regen, state):
     )
 
 
+def _first_rays(regen):
+    """(state, ro, rd) of each lane's first sample (pathtrace_spp's start)."""
+
+    state = rng_mod.init_state(regen["pixel_idx"], regen["accum_counter"],
+                               regen["rng_seed"], regen["sample_offset"])
+    return _camera_ray_from(regen, state)
+
+
 def pathtrace(scene, ctx, ro, rd, state, ptype: int, max_bounces: int):
     """One full path per lane, no regeneration (integrators.py:217-223);
     returns (radiance V3, state, n_bounces, n_traced). The debug
@@ -219,8 +233,10 @@ def pathtrace_spp(
         pixel_idx=pixel_idx, accum_counter=accum_counter, rng_seed=rng_seed,
         spp=spp, max_radiance=max_radiance, sample_offset=sample_offset,
     )
-    state = rng_mod.init_state(pixel_idx, accum_counter, rng_seed, sample_offset)
-    state, ro, rd = _camera_ray_from(regen, state)
+    if shade.applicable(scene, ptype, regen, pixel_idx):
+        state, ro, rd = shade.first_rays(scene, ctx, regen, ptype, max_bounces)
+    else:
+        state, ro, rd = _first_rays(regen)
     if ptype == PathtraceType.MIS:
         return _pathtrace_mis(scene, ctx, ro, rd, state, max_bounces, regen)
     return _pathtrace_snd(scene, ctx, ro, rd, state, ptype, max_bounces, regen)
@@ -390,6 +406,106 @@ def _delta_continue(scene, mp, normal, outgoing, dl, alive, weight, state):
     return alive, v3.where(dl_ok, weight * f_d, weight), inc_d, state
 
 
+def _shade(scene, ctx, p, ptype, max_bounces):
+    """One iteration's work after the closest hit (the `shade` span): the
+    miss, emission, the material point and shading normal, DIRECT's light
+    sample, the continuation (non-delta, delta, volume), then
+    _Path.end_of_bounce. Updates p's radiance, n_bounces, weight and
+    next_emission; returns (done, spawn, alive_next, ro_a, rd_a, state_a,
+    ne_a, light), `light` DIRECT's (pos_surf, ldir, do_l, weight_pre, lf,
+    lpdf) for its light ray, else None."""
+
+    is_direct = ptype == PathtraceType.DIRECT
+    use_nee = ptype in (PathtraceType.STANDARD, PathtraceType.DIRECT)
+    has_light_ray = is_direct and not (scene.lights_empty and scene.envs_empty)
+    types = scene.present_mat_types
+    zeros = v3.zeros(p.alive.shape[0], p.alive.device)
+    alive, ro, rd = p.alive, p.ro, p.rd
+    weight, state, hit, attrs = p.weight, p.state, p.hit, p.attrs
+    next_emission = p.next_emission
+
+    # Miss: environment (direct gates on next_emission, :1075-1080).
+    miss_m = alive & ~hit.hit
+    if not scene.envs_empty:
+        env = lights.sample_environments(scene, rd)
+        env_mask = miss_m & next_emission if is_direct else miss_m
+        p.radiance = p.radiance + v3.where(env_mask, weight * env, zeros)
+    alive = alive & hit.hit
+    p.n_bounces = p.n_bounces + alive.to(torch.int32)
+
+    state, tr1 = rng_mod.next_f32(state)
+    state, tr2 = rng_mod.next_f32(state)
+    vdst, in_volume, weight = _transmit(
+        scene, p.vol_den, p.vol_len, alive, hit, weight, tr1, tr2
+    )
+    surf = alive & ~in_volume
+
+    outgoing = -rd
+    mp = get_material_point(scene, hit, attrs)
+    normal = compute_shading_normal(scene, hit, attrs)
+    pos_surf = ro + rd * hit.dst
+    pos_vol = ro + rd * vdst if scene.any_volumetric else pos_surf
+
+    # Surface emission.
+    em_mask = surf & next_emission if is_direct else surf
+    p.radiance = p.radiance + v3.where(em_mask, weight * mp.emission, zeros)
+
+    delta = is_mat_delta(mp)
+    nd = surf & ~delta
+    dl = surf & delta
+
+    # DIRECT: explicit light ray each bounce (traced in slot B).
+    light = None
+    if has_light_ray:
+        state, ldir = lights.sample_lights(scene, pos_surf, outgoing, state)
+        lpdf = lights.sample_lights_pdf(
+            scene, pos_surf, ldir, ctx["eps"], ctx["Wl"]
+        )
+        lf = bsdf.eval_bsdfcos(mp, normal, outgoing, ldir, types)
+        do_l = nd & v3.all_nonzero(lf) & (lpdf > 0.0)
+        light = (pos_surf, ldir, do_l, weight, lf, lpdf)
+    if is_direct:
+        p.next_emission = torch.where(
+            nd, False, torch.where(dl, True, next_emission)
+        )
+
+    # Non-delta continuation.
+    state, inc_nd, f_nd, dead_nd = _sample_surface_common(
+        scene, ctx, mp, normal, outgoing, pos_surf, state, use_nee
+    )
+    alive = alive & ~(nd & dead_nd)
+    nd_ok = nd & ~dead_nd
+    weight = v3.where(nd_ok, weight * f_nd, weight)
+
+    alive, weight, inc_d, state = _delta_continue(
+        scene, mp, normal, outgoing, dl, alive, weight, state)
+    incoming = v3.where(dl, inc_d, inc_nd)
+
+    if scene.any_volumetric:
+        alive, weight, incoming, state = p.volume_toggle(
+            scene, ctx, surf, alive, in_volume, mp, normal, outgoing,
+            incoming, pos_vol, weight, state, use_nee)
+
+    new_ro = v3.where(in_volume, pos_vol, pos_surf)
+    (done, spawn, alive_next, alive, weight, ro_a, rd_a, state_a,
+     ne_a) = p.end_of_bounce(alive, weight, state,
+                             v3.where(alive, new_ro, ro),
+                             v3.where(alive, incoming, rd), max_bounces)
+    p.weight = weight
+    return done, spawn, alive_next, ro_a, rd_a, state_a, ne_a, light
+
+
+def shade_step_plain(scene, ctx, p, ptype, max_bounces):
+    """The plain version of kernels/shade.py's fused step: `_shade`, the
+    count of slot A's rays and _Path.advance with p's hit record kept, so
+    that p holds slot A's ray, state and mask for the next trace."""
+
+    done, spawn, alive_next, ro_a, rd_a, state_a, ne_a, _ = _shade(
+        scene, ctx, p, ptype, max_bounces)
+    p.n_traced = p.n_traced + alive_next.to(torch.int32)
+    p.advance(done, spawn, alive_next, ro_a, rd_a, state_a, ne_a, p.hit, p.attrs)
+
+
 def _pathtrace_snd(scene, ctx, ro, rd, state, ptype, max_bounces, regen=None):
     """Shared loop for STANDARD / NAIVE / DIRECT, one batched trace call
     per bounce (integrators.py:324-592). DIRECT adds slot B for its
@@ -397,94 +513,39 @@ def _pathtrace_snd(scene, ctx, ro, rd, state, ptype, max_bounces, regen=None):
     their pixel's next sample in place; without it (pathtrace) the loop
     ends after max_bounces. An iteration is core/trace.py's `bounce` span;
     its work after the closest hit (materials, BSDF, lights, end of bounce)
-    the `shade` span inside it."""
+    the `shade` span inside it. Where kernels/shade.py's gate holds (on the
+    card, a regenerating STANDARD or NAIVE loop over a BVH scene inside B3's
+    feature gate) that work is one launch of its fused step, which leaves
+    slot A's ray, state and mask in p for the same trace."""
 
-    B, dev = ro.x.shape[0], ro.x.device
-    is_direct = ptype == PathtraceType.DIRECT
-    use_nee = ptype in (PathtraceType.STANDARD, PathtraceType.DIRECT)
-    has_light_ray = is_direct and not (scene.lights_empty and scene.envs_empty)
-    types = scene.present_mat_types
-    zeros = v3.zeros(B, dev)
+    B = ro.x.shape[0]
+    has_light_ray = (ptype == PathtraceType.DIRECT
+                     and not (scene.lights_empty and scene.envs_empty))
+    zeros = v3.zeros(B, ro.x.device)
     p = _Path(scene, ctx, ro, rd, state, regen)
+    step = (shade.Step(scene, ctx, p, ptype, max_bounces)
+            if shade.applicable(scene, ptype, regen, ro.x) else None)
 
     while p.running(max_bounces):
         with trace.span("bounce"):
+            if step is not None:
+                SHADE_STEPS["fused"] += 1
+                with trace.span("shade"):
+                    step(p)
+                p.hit, p.attrs, _ = ray_skip_alpha(
+                    scene, ctx, p.ro, p.rd, p.state, p.alive, active=p.alive,
+                    coherent=False,
+                )
+                continue
+            SHADE_STEPS["plain"] += 1
             with trace.span("shade"):
-                alive, ro, rd = p.alive, p.ro, p.rd
-                weight, state, hit, attrs = p.weight, p.state, p.hit, p.attrs
-                next_emission = p.next_emission
-
-                # Miss: environment (direct gates on next_emission, :1075-1080).
-                miss_m = alive & ~hit.hit
-                if not scene.envs_empty:
-                    env = lights.sample_environments(scene, rd)
-                    env_mask = miss_m & next_emission if is_direct else miss_m
-                    p.radiance = p.radiance + v3.where(env_mask, weight * env, zeros)
-                alive = alive & hit.hit
-                p.n_bounces = p.n_bounces + alive.to(torch.int32)
-
-                state, tr1 = rng_mod.next_f32(state)
-                state, tr2 = rng_mod.next_f32(state)
-                vdst, in_volume, weight = _transmit(
-                    scene, p.vol_den, p.vol_len, alive, hit, weight, tr1, tr2
-                )
-                surf = alive & ~in_volume
-
-                outgoing = -rd
-                mp = get_material_point(scene, hit, attrs)
-                normal = compute_shading_normal(scene, hit, attrs)
-                pos_surf = ro + rd * hit.dst
-                pos_vol = ro + rd * vdst if scene.any_volumetric else pos_surf
-
-                # Surface emission.
-                em_mask = surf & next_emission if is_direct else surf
-                p.radiance = p.radiance + v3.where(em_mask, weight * mp.emission, zeros)
-
-                delta = is_mat_delta(mp)
-                nd = surf & ~delta
-                dl = surf & delta
-
-                # DIRECT: explicit light ray each bounce (traced in slot B below).
-                weight_pre = weight
-                if has_light_ray:
-                    state, ldir = lights.sample_lights(scene, pos_surf, outgoing, state)
-                    lpdf = lights.sample_lights_pdf(
-                        scene, pos_surf, ldir, ctx["eps"], ctx["Wl"]
-                    )
-                    lf = bsdf.eval_bsdfcos(mp, normal, outgoing, ldir, types)
-                    do_l = nd & v3.all_nonzero(lf) & (lpdf > 0.0)
-                if is_direct:
-                    p.next_emission = torch.where(
-                        nd, False, torch.where(dl, True, next_emission)
-                    )
-
-                # Non-delta continuation.
-                state, inc_nd, f_nd, dead_nd = _sample_surface_common(
-                    scene, ctx, mp, normal, outgoing, pos_surf, state, use_nee
-                )
-                alive = alive & ~(nd & dead_nd)
-                nd_ok = nd & ~dead_nd
-                weight = v3.where(nd_ok, weight * f_nd, weight)
-
-                alive, weight, inc_d, state = _delta_continue(
-                    scene, mp, normal, outgoing, dl, alive, weight, state)
-                incoming = v3.where(dl, inc_d, inc_nd)
-
-                if scene.any_volumetric:
-                    alive, weight, incoming, state = p.volume_toggle(
-                        scene, ctx, surf, alive, in_volume, mp, normal, outgoing,
-                        incoming, pos_vol, weight, state, use_nee)
-
-                new_ro = v3.where(in_volume, pos_vol, pos_surf)
-                (done, spawn, alive_next, alive, weight, ro_a, rd_a, state_a,
-                 ne_a) = p.end_of_bounce(alive, weight, state,
-                                         v3.where(alive, new_ro, ro),
-                                         v3.where(alive, incoming, rd), max_bounces)
-                p.weight = weight
+                (done, spawn, alive_next, ro_a, rd_a, state_a, ne_a,
+                 light) = _shade(scene, ctx, p, ptype, max_bounces)
 
             # --- ONE combined trace ---
             active_a = alive_next
             if has_light_ray:
+                pos_surf, ldir, do_l, weight_pre, lf, lpdf = light
                 ro3 = v3.cat(ro_a, pos_surf)
                 rd3 = v3.cat(rd_a, ldir)
                 mask3 = torch.cat([active_a, torch.zeros_like(active_a)])
@@ -545,6 +606,7 @@ def _pathtrace_mis(scene, ctx, ro, rd, state, max_bounces, regen=None):
     p = _Path(scene, ctx, ro, rd, state, regen)
 
     while p.running(max_bounces):
+        SHADE_STEPS["plain"] += 1
         alive, ro, rd = p.alive, p.ro, p.rd
         weight, state, hit, attrs = p.weight, p.state, p.hit, p.attrs
         next_emission = p.next_emission
