@@ -74,14 +74,14 @@ main paths through its entry points:
   TPU budget, its camera batch through B4 and through the sort wavefront
   (LUPIN_NO_PACKET), t equal on every lane, B4 bit for bit against its
   plain version; dispatch_1080p, terrain2M at 1920x1080 x 1 spp, one
-  dispatch by the working-set self-bound and 40 under the JAX package's
-  rays x stride rule (LUPIN_DISPATCH_RAY_STRIDE_BUDGET), the images
-  identical and the peak of allocated memory within the reckoning
+  dispatch by the working-set self-bound and 40 with the self-bound's
+  budget cut to force 256x256 tiles (renderer.DISPATCH_MEMORY_SHARE), the
+  images identical and the peak of allocated memory within the reckoning
   (renderer.dispatch_bytes_per_lane); packet_bounce, both BVH main paths
-  (instanced100k at 1 spp) by default, under LUPIN_FORCE_PACKET (B4 on
-  bounce batches) and with LUPIN_PACKET_RAYSORT too, each forced image
-  against the default's, B4's first and last live bounce launch replayed
-  sorted and unsorted against its plain version bit for bit;
+  (instanced100k at 1 spp) by default and under LUPIN_FORCE_PACKET (B4 on
+  bounce batches), the forced image against the default's, B4's first and
+  last live bounce launch replayed against its plain version bit for
+  bit;
 - B6 and the B6' ablation variants (tools/prof_pair.py of the port) in
   turns on the round-1 states of the terrain2M and instanced100k camera
   batches, with the share of B6's threads that hold a pair in each design.
@@ -553,7 +553,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     dp = V3(intersect._pad(d.x, pad, 0.0), intersect._pad(d.y, pad, 1.0),
             intersect._pad(d.z, pad, 0.0))
     S = bvh.stack_depth(ts)
-    Q = intersect.WF_Q_DIVERGENT
+    Q = intersect.WF_Q
     PB = intersect.WF_PAIR_BLOCK
     tab = ts.top_tab
     stack0 = torch.zeros((S, Bp), dtype=torch.int32, device=dev)
@@ -978,7 +978,7 @@ def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
     dp = V3(intersect._pad(d.x, pad, 0.0), intersect._pad(d.y, pad, 1.0),
             intersect._pad(d.z, pad, 0.0))
     S = bvh.stack_depth(ts)
-    Q = intersect.WF_Q_DIVERGENT
+    Q = intersect.WF_Q
     tab = ts.top_tab
     stack0 = torch.zeros((S, Bp), dtype=torch.int32, device=dev)
     sp0 = (torch.arange(Bp, device=dev) < B).to(torch.int32)
@@ -1962,6 +1962,17 @@ def with_env(env: dict, fn):
             os.environ.pop(k, None)
 
 
+def with_attr(obj, name: str, value, fn):
+    """fn() with obj.name set to `value`, restored after."""
+
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        return fn()
+    finally:
+        setattr(obj, name, old)
+
+
 def packet_gate_phase(dev, smi, counters, width=512, height=288):
     """Phase 25, packet_gate_field: the smallest instanced field (a multiple
     of 5,000 instances of 64-triangle meshes, one mesh superleaf each)
@@ -2055,8 +2066,8 @@ def packet_gate_phase(dev, smi, counters, width=512, height=288):
 def dispatch_1080p_phase(dev, smi, ts, cams, counters, spp=1, bounces=8):
     """Phase 26, dispatch_1080p: terrain2M, STANDARD, 1920x1080 x 1 spp x
     8 bounces, one accumulation, by default (the working-set self-bound:
-    one dispatch) and under LUPIN_DISPATCH_RAY_STRIDE_BUDGET=700000000 (the
-    JAX package's rays x stride rule: 256² tiles); per run the dispatches,
+    one dispatch) and with renderer.DISPATCH_MEMORY_SHARE cut to twice one
+    256² tile's working set (256² tiles); per run the dispatches,
     wall, segments, Mrays/s, kernel launches, PyTorch launches (one
     profiled accumulation) and the peak of allocated memory above the
     allocation before the run, against dispatch_bytes_per_lane x lanes.
@@ -2075,13 +2086,16 @@ def dispatch_1080p_phase(dev, smi, ts, cams, counters, spp=1, bounces=8):
     reckoned = per_lane * w * h
     mem = renderer.device_memory_bytes(dev)
     out = {}
-    for run, env in (("default", {}),
-                     ("jax_budget", {"LUPIN_DISPATCH_RAY_STRIDE_BUDGET": "700000000"})):
+    for run, share in (("default", renderer.DISPATCH_MEMORY_SHARE),
+                       ("tiles_256", 2 * 256 * 256 * per_lane / mem)):
         def render(stats=None):
             return lt.render_progressive(ts, desc, baked, w, h, 1, device=dev,
                                          stats=stats)
 
-        tiles = with_env(env, lambda: renderer.dispatch_tiles(
+        def with_share(fn):
+            return with_attr(renderer, "DISPATCH_MEMORY_SHARE", share, fn)
+
+        tiles = with_share(lambda: renderer.dispatch_tiles(
             ts, (h, w), baked, int(desc.pathtrace_type), dev))
         calls = []
         real = renderer._render_pathtrace
@@ -2093,7 +2107,7 @@ def dispatch_1080p_phase(dev, smi, ts, cams, counters, spp=1, bounces=8):
             torch.cuda.reset_peak_memory_stats(dev)
             reset(*counters)
             t0 = time.perf_counter()
-            img = with_env(env, lambda: render(stats))
+            img = with_share(lambda: render(stats))
             wall = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated(dev) - base
             launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
@@ -2101,10 +2115,11 @@ def dispatch_1080p_phase(dev, smi, ts, cams, counters, spp=1, bounces=8):
             dispatches = len(calls)
         finally:
             renderer._render_pathtrace = real
-        prof = with_env(env, lambda: device_profile(render))
+        prof = with_share(lambda: device_profile(render))
         out[run] = img
         emit("dispatch_1080p", run=run, width=w, height=h, spp=spp, bounces=bounces,
-             integrator="STANDARD", tile=tiles, dispatches=dispatches, wall_s=wall,
+             integrator="STANDARD", memory_share=share, tile=tiles,
+             dispatches=dispatches, wall_s=wall,
              rays=stats["rays"], mrays_per_s=stats["rays"] / wall / 1e6,
              launches=launches, host_syncs=syncs,
              torch_launches_by_group=prof["kernels_by_group"],
@@ -2117,21 +2132,20 @@ def dispatch_1080p_phase(dev, smi, ts, cams, counters, spp=1, bounces=8):
              peak_within_reckoning=peak <= reckoned, card=smi)
         assert peak <= reckoned and base + peak < mem / 2, (peak, reckoned, base)
         n_tiles = 1 if tiles is None else np.prod(lt.get_num_tiles(w, h, tiles))
-        assert dispatches == n_tiles and (run == "jax_budget") == (n_tiles > 1)
+        assert dispatches == n_tiles and tiles == (256 if run == "tiles_256" else None)
         assert np.isfinite(img).all() and img.mean() > 0
-    diff = np.any(out["default"] != out["jax_budget"], axis=-1)
+    diff = np.any(out["default"] != out["tiles_256"], axis=-1)
     emit("dispatch_1080p_images", identical=not diff.any(),
          pixels_differing=int(diff.sum()),
-         max_abs_diff=float(np.abs(out["default"] - out["jax_budget"]).max()), card=smi)
+         max_abs_diff=float(np.abs(out["default"] - out["tiles_256"]).max()), card=smi)
     assert diff.mean() <= 1e-4
 
 
 def b4_replay(ts, rec_args, smi, reps=3):
-    """One recorded B4 launch, unsorted and sorted, each equal to the plain
-    version bit for bit: the kernel's ms either way, the plain ms, the
-    bound, the lane share of the batch's packets in either order, and the
-    lanes whose winner differs from the sort wavefront's on the same rays
-    (exact-t ties)."""
+    """One recorded B4 launch, equal to the plain version bit for bit: the
+    kernel's ms, the plain ms, the bound, the lane share of the batch's
+    packets, and the lanes whose winner differs from the sort wavefront's
+    on the same rays (exact-t ties)."""
 
     from lupinpathtracer_tpu_torch.kernels import intersect, packet
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
@@ -2140,18 +2154,11 @@ def b4_replay(ts, rec_args, smi, reps=3):
     scene, ro, rd, eps, W = a
     act = kw.get("active")
     B = ro.x.shape[0]
-    ms_u, k_u, by_u = kernel_ms(lambda: packet.packet_traverse(*a, **kw, ray_sort=False),
-                                "packet_kernel", reps)
-    ms_s, k_s, by_s = kernel_ms(lambda: packet.packet_traverse(*a, **kw, ray_sort=True),
-                                "packet_kernel", reps)
+    ms, k, by = kernel_ms(lambda: packet.packet_traverse(*a, **kw),
+                          "packet_kernel", reps)
     work: dict = {}
     p_ms, p = plain_ms(lambda: packet.packet_traverse_plain(*a, **kw, counts=work))
-    assert_equal(k_u, p, "B4 replay, unsorted")
-    assert_equal(k_s, p, "B4 replay, sorted")
-    _, sro, srd, sact = packet.coherence_order(scene, ro, rd, act)
-    work_s: dict = {}
-    packet.packet_traverse_plain(scene, sro, srd, eps, W, active=sact,
-                                 with_attrs=kw.get("with_attrs", False), counts=work_s)
+    assert_equal(k, p, "B4 replay")
     hits = int((p[0] < dk.F32_MAX).sum())
     rows = scene.top_tab.shape[0]
     if scene.two_level:
@@ -2167,12 +2174,11 @@ def b4_replay(ts, rec_args, smi, reps=3):
         scene, ro, rd, eps, W=W, active=act, coherent=False))
     both = hw.hit & (p[0] < dk.F32_MAX)
     return dict(rays=B, active=B if act is None else int(act.sum()), hits=hits,
-                ms_unsorted=ms_u, ms_sorted=ms_s, plain_ms=p_ms, bound_ms=bnd[0],
-                bound_by=bnd[1], lane_share_unsorted=work["lane_share"],
-                lane_share_sorted=work_s["lane_share"],
+                ms=ms, plain_ms=p_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                lane_share=work["lane_share"],
                 t_equal_wavefront=bool(torch.equal(hw.dst, p[0])),
                 winner_differs_from_wavefront=int(((hw.tri != p[4]) & both).sum()),
-                timed_by=sorted({by_u, by_s}), bit_for_bit=True)
+                timed_by=by, bit_for_bit=True)
 
 
 # packet_bounce's depth cut: instanced100k at 1 spp keeps the three control
@@ -2184,16 +2190,15 @@ def packet_bounce_phase(dev, smi, bvh_scenes, counters):
     """Phase 27, packet_bounce: both BVH main paths (512x288 x 4 spp x 8
     bounces, STANDARD; instanced100k at BOUNCE_SPP's 1 spp; 1 warm-up + 1
     timed and 1 profiled accumulation)
-    on three routes: the default (B4 on camera rays, the sort wavefront on
-    bounces), LUPIN_FORCE_PACKET=1 (B4 on every batch) and with
-    LUPIN_PACKET_RAYSORT=1 too. Per route the wall, Mrays/s, launches,
-    syncs, device busy share and B4's mean device ms per launch in the
-    profiled accumulation; each forced image against the default's (the
-    segments within 0.1%, >= 99.9% of pixels within 1e-4 relative). Then
-    B4's first and last live bounce launch of a 1-spp forced accumulation
-    (REPLAY_SPP) replayed unsorted and sorted against the plain version
-    (b4_replay), and the camera batch's lane share in either order.
-    Returns B4's bounce-batch kernel entries."""
+    on two routes: the default (B4 on camera rays, the sort wavefront on
+    bounces) and LUPIN_FORCE_PACKET=1 (B4 on every batch). Per route the
+    wall, Mrays/s, launches, syncs, device busy share and B4's mean device
+    ms per launch in the profiled accumulation; the forced image against
+    the default's (the segments within 0.1%, >= 99.9% of pixels within
+    1e-4 relative). Then B4's first and last live bounce launch of a 1-spp
+    forced accumulation (REPLAY_SPP) replayed against the plain version
+    (b4_replay), and the camera batch's lane share. Returns B4's
+    bounce-batch kernel entries."""
 
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
@@ -2202,8 +2207,7 @@ def packet_bounce_phase(dev, smi, bvh_scenes, counters):
 
     (w, h), nb = API["bvh_wh"], API["bounces"]
     force = {"LUPIN_FORCE_PACKET": "1"}
-    routes = (("default", {}), ("force_packet", force),
-              ("force_packet_raysort", {**force, "LUPIN_PACKET_RAYSORT": "1"}))
+    routes = (("default", {}), ("force_packet", force))
     kernels = []
     for tag, (ts, cams) in bvh_scenes.items():
         spp = BOUNCE_SPP.get(tag, API["bvh_spp"])
@@ -2251,13 +2255,8 @@ def packet_bounce_phase(dev, smi, bvh_scenes, counters):
             packet, "packet_traverse",
             replay.one_accumulation(ts, desc, w, h, REPLAY_SPP, nb), share=(0, 4)))
         cam = rec[0]
-        _, sro, srd, _ = packet.coherence_order(ts, cam[0][1], cam[0][2])
-        cam_u: dict = {}
-        cam_s: dict = {}
-        packet.packet_traverse_plain(*cam[0], **cam[1], counts=cam_u)
-        packet.packet_traverse_plain(ts, sro, srd, cam[0][3], cam[0][4],
-                                     with_attrs=cam[1].get("with_attrs", False),
-                                     counts=cam_s)
+        cam_work: dict = {}
+        packet.packet_traverse_plain(*cam[0], **cam[1], counts=cam_work)
         # The last launch with a live lane: the loop's final launch may hold
         # none (every path ended).
         last = max(i for i, (_, k) in enumerate(rec)
@@ -2268,25 +2267,22 @@ def packet_bounce_phase(dev, smi, bvh_scenes, counters):
             emit("packet_bounce_b4_replay", scene=tag, launch=which, index=i,
                  launches_recorded=len(rec), card=smi, **reps[which])
         emit("packet_bounce_camera_lane_share", scene=tag,
-             lane_share_unsorted=cam_u["lane_share"],
-             lane_share_sorted=cam_s["lane_share"], card=smi)
+             lane_share=cam_work["lane_share"], card=smi)
         rs = list(reps.values())
-        for route, key, share in (("force_packet", "ms_unsorted", "lane_share_unsorted"),
-                                  ("force_packet_raysort", "ms_sorted", "lane_share_sorted")):
-            ms = sum(r[key] for r in rs) / len(rs)
-            bnd = (sum(r["bound_ms"] for r in rs) / len(rs), rs[0]["bound_by"])
-            p_ms = sum(r["plain_ms"] for r in rs) / len(rs)
-            by = "device_records" if all(r["timed_by"] == ["device_records"]
-                                         for r in rs) else "events"
-            emit("packet_bounce_b4", scene=tag, route=route, mean_ms=ms, bound_ms=bnd[0],
-                 share_of_bound=bnd[0] / ms,
-                 mean_lane_share=sum(r[share] for r in rs) / len(rs),
-                 launches_per_accumulation=b4_launches[route], card=smi)
-            kernels.append(entry(
-                f"B4 packet_traverse ({tag}; bounce batches, "
-                f"{'sorted' if 'raysort' in route else 'unsorted'}; mean of the first "
-                f"and last live bounce launch)", "packet.cu", B4_SITE, b4_launches[route],
-                0.0, ms, p_ms, bnd, by, launches_in=f"packet_bounce {route}"))
+        ms = sum(r["ms"] for r in rs) / len(rs)
+        bnd = (sum(r["bound_ms"] for r in rs) / len(rs), rs[0]["bound_by"])
+        p_ms = sum(r["plain_ms"] for r in rs) / len(rs)
+        by = "device_records" if all(r["timed_by"] == "device_records"
+                                     for r in rs) else "events"
+        emit("packet_bounce_b4", scene=tag, route="force_packet", mean_ms=ms,
+             bound_ms=bnd[0], share_of_bound=bnd[0] / ms,
+             mean_lane_share=sum(r["lane_share"] for r in rs) / len(rs),
+             launches_per_accumulation=b4_launches["force_packet"], card=smi)
+        kernels.append(entry(
+            f"B4 packet_traverse ({tag}; bounce batches; mean of the first and "
+            "last live bounce launch)", "packet.cu", B4_SITE,
+            b4_launches["force_packet"], 0.0, ms, p_ms, bnd, by,
+            launches_in="packet_bounce force_packet"))
     return kernels
 
 

@@ -18,15 +18,16 @@ sample sets over a list of devices).
 
 The environment switches it reads, at each call as the JAX package does:
 LUPIN_NO_PACKET (no kernel B4), LUPIN_FORCE_PACKET (B4 on bounce batches
-too), LUPIN_PACKET_RAYSORT (B4's coherence sort), LUPIN_PACKET_MAX_GSL
-(B4's superleaf envelope), LUPIN_WF_Q, LUPIN_WF_Q_DIV, LUPIN_WF_Q_TAIL and
-LUPIN_WF_TAIL_C (the BVH wavefront's emits per round and straggler
-capacity; kernels/intersect.py), LUPIN_SPP_STREAMS (sample streams),
-LUPIN_DISPATCH_RAY_STRIDE_BUDGET and LUPIN_DISPATCH_TILE_FLOOR (the
-dispatch self-bound, render/renderer.py: by default a frame is split only
-where its working set would pass half of the device's memory; the budget
-variable restores the JAX package's rays x stride rule). An invalid
-integer value raises a ValueError naming the variable.
+too; kernels/intersect.py) and LUPIN_SPP_STREAMS (sample streams,
+render/renderer.py). Eight more are retired, each to the one setting
+every caller ran: LUPIN_PACKET_RAYSORT (B4's coherence sort, off and
+removed with its code), LUPIN_PACKET_MAX_GSL, LUPIN_WF_Q, LUPIN_WF_Q_DIV,
+LUPIN_WF_Q_TAIL and LUPIN_WF_TAIL_C (now constants of kernels/intersect.py),
+LUPIN_DISPATCH_RAY_STRIDE_BUDGET (the JAX package's rays x stride dispatch
+rule, removed) and LUPIN_DISPATCH_TILE_FLOOR (a constant of
+render/renderer.py, whose dispatch self-bound splits a frame only where its
+working set would pass half of the device's memory). The port reads none of
+them.
 
 Without a counterpart, by design: the JAX package's packet probe
 (LUPIN_SKIP_PROBE) and its scalar-memory ring (LUPIN_PACKET_STREAM), TPU

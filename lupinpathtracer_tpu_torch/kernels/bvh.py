@@ -592,22 +592,54 @@ def top_traverse(tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl):
 
     from . import cuda_build
 
-    out = _top_launch(cuda_build.load("bvh"), tab, ro, rd, best_t, stack, sp,
-                      S=S, Q=Q, n_sl=n_sl)
+    out = _top_launch(cuda_build.load("bvh", bind), tab, ro, rd, best_t,
+                      stack, sp, S=S, Q=Q, n_sl=n_sl)
     LAUNCHES["top_traverse"] += 1
     return out
 
 
+def _pair_argtypes(n_head: int, split: bool) -> list:
+    """A pair kernel entry point's arguments: `n_head` leading ints (the
+    variant's index), then B6's (with its split scratch when `split`)."""
+
+    return ([ctypes.c_int] * n_head + [ctypes.c_void_p] * 14
+            + [ctypes.c_longlong] + [ctypes.c_int] * 4
+            + [ctypes.c_float] + [ctypes.c_void_p] * 5
+            + ([ctypes.c_void_p] * 2 + [ctypes.c_int] if split else [])
+            + [ctypes.c_void_p])
+
+
+def bind(lib):
+    """Declares the entry points' signatures on a loaded build of
+    csrc/bvh.cu (B5, B6, B7), once: cuda_build.load calls it where it opens
+    the library, the variant tools on their copies. Returns `lib`."""
+
+    lib.lupin_top_traverse.restype = ctypes.c_int
+    lib.lupin_top_traverse.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7)
+    lib.lupin_pair_intersect.restype = ctypes.c_int
+    lib.lupin_pair_intersect.argtypes = _pair_argtypes(0, split=True)
+    lib.lupin_attr_fetch.restype = ctypes.c_int
+    lib.lupin_attr_fetch.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+    return lib
+
+
+def bind_variants(lib):
+    """bind's counterpart for csrc/pair_variants.cu (B6')."""
+
+    lib.lupin_pair_variant.restype = ctypes.c_int
+    lib.lupin_pair_variant.argtypes = _pair_argtypes(1, split=False)
+    return lib
+
+
 def _top_launch(lib, tab, ro, rd, best_t, stack, sp, *, S, Q, n_sl):
     """B5's kernel from the loaded library `lib` (the checkout's build of
-    csrc/bvh.cu, or a copy of it: tools/prof_top.py)."""
+    csrc/bvh.cu, or a copy of it: tools/prof_top.py), bound by `bind`."""
 
     from . import cuda_build
 
     fn = lib.lupin_top_traverse
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 7)
     dev = ro.x.device
     Bp = ro.x.shape[0]
     nb = hist_bins(n_sl)
@@ -639,23 +671,16 @@ def _inst_check(inst, n, tabs, what):
     return True
 
 
-def _pair_launch(symbol, lib, head, blk, sl, lo, hi, n_items, inst, txf_tab,
+def _pair_launch(fn, head, blk, sl, lo, hi, n_items, inst, txf_tab,
                  ro, rd, W4, eps, SP, pair_block, split=False):
-    """Launches a pair kernel entry point (`head`: its leading int
-    arguments) and returns (t, u, v, det, li). `split` is B6's launch: the
-    kernel reads pair_table(W4) instead of W4 and gets its split scratch,
-    PAIR_SPLIT_UNITS units of PAIR_TILE partial minima and their
-    counters."""
+    """Launches the pair kernel entry point `fn` of a bound library
+    (`head`: its leading int arguments) and returns (t, u, v, det, li).
+    `split` is B6's launch: the kernel reads pair_table(W4) instead of W4
+    and gets its split scratch, PAIR_SPLIT_UNITS units of PAIR_TILE partial
+    minima and their counters."""
 
     from . import cuda_build
 
-    fn = getattr(cuda_build.load(lib), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * len(head) + [ctypes.c_void_p] * 14
-                   + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_void_p] * 5
-                   + ([ctypes.c_void_p] * 2 + [ctypes.c_int] if split else [])
-                   + [ctypes.c_void_p])
     dev = ro.x.device
     P = ro.x.shape[0]
     t = torch.full((P,), F32_MAX, dtype=torch.float32, device=dev)
@@ -678,7 +703,7 @@ def _pair_launch(symbol, lib, head, blk, sl, lo, hi, n_items, inst, txf_tab,
                 pair_block, P, float(eps), t.data_ptr(), u.data_ptr(),
                 v.data_ptr(), det.data_ptr(), li.data_ptr(), *scratch,
                 _stream(dev))
-    cuda_build.check(rc, symbol)
+    cuda_build.check(rc, fn.__name__)
     return t, u, v, det, li
 
 
@@ -712,9 +737,11 @@ def pair_intersect(blk, sl, lo, hi, ro, rd, W4, eps, *, SP, pair_block=256,
         return pair_intersect_plain(blk, sl, lo, hi, ro, rd, W4, eps, SP=SP,
                                     pair_block=pair_block, n_items=n_items,
                                     inst=inst, txf_tab=txf_tab)
-    out = _pair_launch("lupin_pair_intersect", "bvh", (), blk, sl, lo, hi,
-                       n_items, inst, txf_tab, ro, rd, W4, eps, SP, pair_block,
-                       split=True)
+    from . import cuda_build
+
+    out = _pair_launch(cuda_build.load("bvh", bind).lupin_pair_intersect, (),
+                       blk, sl, lo, hi, n_items, inst, txf_tab, ro, rd, W4, eps,
+                       SP, pair_block, split=True)
     LAUNCHES["pair_intersect"] += 1
     return out
 
@@ -734,9 +761,12 @@ def pair_intersect_variant(variant, blk, sl, lo, hi, ro, rd, W4, eps, *, SP,
         return pair_intersect_plain(blk, sl, lo, hi, ro, rd, W4, eps, SP=SP,
                                     pair_block=pair_block, n_items=n_items,
                                     inst=inst, txf_tab=txf_tab, variant=variant)
-    out = _pair_launch("lupin_pair_variant", "pair_variants",
-                       (PAIR_VARIANTS.index(variant),), blk, sl, lo, hi,
-                       n_items, inst, txf_tab, ro, rd, W4, eps, SP, pair_block)
+    from . import cuda_build
+
+    lib = cuda_build.load("pair_variants", bind_variants)
+    out = _pair_launch(lib.lupin_pair_variant, (PAIR_VARIANTS.index(variant),),
+                       blk, sl, lo, hi, n_items, inst, txf_tab, ro, rd, W4, eps,
+                       SP, pair_block)
     LAUNCHES["pair_intersect_variant"] += 1
     return out
 
@@ -771,8 +801,8 @@ def attr_fetch(blk, sl, lo, hi, li, hu, hv, A3, *, pair_block=256,
 
     from . import cuda_build
 
-    out = _attr_launch(cuda_build.load("bvh"), blk, sl, lo, hi, li, hu, hv, A3,
-                       pair_block=pair_block, with_tangents=with_tangents,
+    out = _attr_launch(cuda_build.load("bvh", bind), blk, sl, lo, hi, li, hu,
+                       hv, A3, pair_block=pair_block, with_tangents=with_tangents,
                        n_items=n_items, inst=inst, nrm_tab=nrm_tab,
                        ovr_tab=ovr_tab)
     LAUNCHES["attr_fetch"] += 1
@@ -782,8 +812,9 @@ def attr_fetch(blk, sl, lo, hi, li, hu, hv, A3, *, pair_block=256,
 def _attr_launch(lib, blk, sl, lo, hi, li, hu, hv, A3, *, pair_block,
                  with_tangents, n_items, inst, nrm_tab, ovr_tab):
     """B7's kernel from the loaded library `lib` (the checkout's build of
-    csrc/bvh.cu, or a build of an earlier design: tools/replay.py), on
-    checked arguments; n_items a one-element device tensor."""
+    csrc/bvh.cu, or a build of an earlier design: tools/replay.py), bound
+    by `bind`, on checked arguments; n_items a one-element device
+    tensor."""
 
     from . import cuda_build
 
@@ -793,8 +824,6 @@ def _attr_launch(lib, blk, sl, lo, hi, li, hu, hv, A3, *, pair_block,
                          "ATTR_MAT_ID: A3 must be 16-byte aligned with a row "
                          f"width divisible by 4, got {tuple(A3.shape)}")
     fn = lib.lupin_attr_fetch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
     dev = li.device
     P = li.shape[0]
     awout = IA_ROWS_NM if with_tangents else IA_ROWS

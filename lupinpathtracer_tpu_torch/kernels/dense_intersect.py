@@ -168,18 +168,28 @@ def smem_bytes(T: int, attrs: bool) -> int:
     return max(stage, tiles)
 
 
+def bind(lib):
+    """Declares lupin_dense_closest_hit's signature on a loaded build of
+    csrc/dense_intersect.cu, once: cuda_build.load calls it where it opens
+    the library, the variant tools on their copies. Returns `lib`."""
+
+    lib.lupin_dense_closest_hit.restype = ctypes.c_int
+    lib.lupin_dense_closest_hit.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_void_p] * 7)
+    return lib
+
+
 def _launch(lib, table, R, eps, T, A=None):
     """One launch of `lupin_dense_closest_hit` from the loaded library `lib`
-    on the coefficient table `table` (pair_table(W4) for this checkout's
-    kernel; a build of an earlier design takes what it reads, as
-    tools/replay.py passes it). Returns (t, u, v, det, idx, attr or None)."""
+    (bound by `bind`) on the coefficient table `table` (pair_table(W4) for
+    this checkout's kernel; a build of an earlier design takes what it
+    reads, as tools/replay.py passes it). Returns (t, u, v, det, idx, attr
+    or None)."""
 
     from . import cuda_build
 
     fn = lib.lupin_dense_closest_hit
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_float] + [ctypes.c_void_p] * 7
     R = R.contiguous()
     B = R.shape[0]
     dev = R.device
@@ -209,8 +219,8 @@ def _kernel(W4, R, eps, A=None):
     from . import cuda_build
     from .bvh import pair_table
 
-    return _launch(cuda_build.load("dense_intersect"), pair_table(W4), R, eps,
-                   W4.shape[2], A)
+    return _launch(cuda_build.load("dense_intersect", bind), pair_table(W4), R,
+                   eps, W4.shape[2], A)
 
 
 def dense_closest_hit(W4, R, eps):

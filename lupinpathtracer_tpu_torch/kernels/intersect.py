@@ -33,16 +33,14 @@ ray_tri_dst (pathtracer.wgsl:2922-2943).
   `wavefront_fetch_attrs`. `closest_hit_brute_two_level` is their
   reference for the tests: every (ray, global superleaf) pair, no tree.
 
-The JAX package's traversal switches, read from the environment at each
-call as there: LUPIN_NO_PACKET (no B4 at all), LUPIN_FORCE_PACKET (B4 on
-bounce batches too), LUPIN_PACKET_RAYSORT (B4's coherence sort,
-kernels/packet.py), LUPIN_PACKET_MAX_GSL (B4's superleaf envelope),
-LUPIN_WF_Q, LUPIN_WF_Q_DIV, LUPIN_WF_Q_TAIL and LUPIN_WF_TAIL_C (the
-wavefront's emits per round and straggler capacity, wf_params). The JAX
-package's LUPIN_PACKET_GEO_VMEM_MAX and LUPIN_PACKET_REFS_SMEM_MAX have no
-counterpart: they are the TPU's VMEM and SMEM budgets for a staged top
-tree, and B4 here reads the top tree from global memory
-(packet_eligible lists the card's own limits).
+The JAX package's route switches, read from the environment at each call
+as there: LUPIN_NO_PACKET (no B4 at all) and LUPIN_FORCE_PACKET (B4 on
+bounce batches too). The wavefront's round sizes (WF_Q, WF_Q_TAIL,
+WF_TAIL_C) and B4's superleaf envelope (PACKET_MAX_GSL) are constants. The
+JAX package's LUPIN_PACKET_GEO_VMEM_MAX and LUPIN_PACKET_REFS_SMEM_MAX have
+no counterpart: they are the TPU's VMEM and SMEM budgets for a staged top
+tree, and B4 here reads the top tree from global memory (packet_eligible
+lists the card's own limits).
 
 `closest_hit_bvh`, the JAX package's masked-stack walk over the binary BVH,
 walks the binary BVH rather than the superleaf tables the kernels walk, so
@@ -52,7 +50,6 @@ walk, and the card tests hold the B4 and B5-B7 routes to it.
 
 from __future__ import annotations
 
-import os
 import sys
 from dataclasses import dataclass, fields
 
@@ -372,49 +369,16 @@ def closest_hit_brute_two_level(scene, ro: V3, rd: V3, eps, W,
 # BVH wavefront (kernels B4-B7)
 # ---------------------------------------------------------------------------
 
-WF_Q = 8  # superleaf emits per ray per round (coherent batches)
-WF_Q_DIVERGENT = 8  # bounce batches
+WF_Q = 8  # superleaf emits per ray per full-batch round
 WF_Q_TAIL = 32  # compacted straggler rounds
 WF_RAY_BLOCK = 2048  # lane padding of a batch
 WF_PAIR_BLOCK = 256  # sorted positions per work-item block
 WF_TAIL_C = 2048  # straggler-compaction capacity
 
 # B4's envelope on global superleaves (intersect.py:79-99): the JAX
-# package's default, which LUPIN_PACKET_MAX_GSL overrides.
+# package's default.
 PACKET_MAX_GSL = 131072
 _GATE_LOGGED: set = set()
-
-
-def env_int(name: str, default: int, least: int = 1) -> int:
-    """An integer switch from the environment, read at each call: `default`
-    when unset, else its value, which must be an integer >= least."""
-
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    try:
-        val = int(raw)
-    except ValueError:
-        raise ValueError(f"{name}={raw!r} is not an integer") from None
-    if val < least:
-        raise ValueError(f"{name}={val} is below {least}")
-    return val
-
-
-def wf_params(coherent: bool = True) -> dict:
-    """The wavefront's round parameters at this call (intersect.py:571-574,
-    :663-665, :697, :724): the superleaf emits per ray per round, Q
-    (LUPIN_WF_Q on coherent batches, LUPIN_WF_Q_DIV on bounce batches), the
-    straggler rounds' Q_TAIL (LUPIN_WF_Q_TAIL) and the straggler
-    compaction's capacity C (LUPIN_WF_TAIL_C); the constants above by
-    default. An invalid value raises a ValueError naming the variable."""
-
-    return dict(
-        Q=(env_int("LUPIN_WF_Q", WF_Q) if coherent
-           else env_int("LUPIN_WF_Q_DIV", WF_Q_DIVERGENT)),
-        Q_TAIL=env_int("LUPIN_WF_Q_TAIL", WF_Q_TAIL),
-        C=env_int("LUPIN_WF_TAIL_C", WF_TAIL_C),
-    )
 
 
 def packet_eligible(scene) -> bool:
@@ -422,8 +386,7 @@ def packet_eligible(scene) -> bool:
     each a width of the kernel's own words:
     - triangle ids: a winner's id, ref * SP + s * spb, is an int32, so the
       global superleaves are at most (2**31 - 1) // SP; and at most
-      LUPIN_PACKET_MAX_GSL (PACKET_MAX_GSL by default; the JAX package's
-      envelope, intersect.py:96-99);
+      PACKET_MAX_GSL (the JAX package's envelope, intersect.py:96-99);
     - the stack: a warp's shared stack holds PK_STACK entries
       (packet.PACKET_STACK_MAX), and a ray needs packet.stack_size;
     - node references: a stack entry and a refs word hold
@@ -442,12 +405,11 @@ def packet_eligible(scene) -> bool:
 
     if scene.top_root_is_leaf:
         return False
-    max_gsl = min(env_int("LUPIN_PACKET_MAX_GSL", PACKET_MAX_GSL, least=0),
-                  (2**31 - 1) // max(int(scene.sl_stride), 1))
+    max_gsl = min(PACKET_MAX_GSL, (2**31 - 1) // max(int(scene.sl_stride), 1))
     reason = None
     if scene.sl_count > max_gsl:
         reason = (f"{scene.sl_count} superleaves > {max_gsl} "
-                  "(LUPIN_PACKET_MAX_GSL, int32 triangle ids)")
+                  "(PACKET_MAX_GSL, int32 triangle ids)")
     elif packet.stack_size(scene) > packet.PACKET_STACK_MAX:
         reason = f"top tree of depth {scene.top_depth}"
     if reason is None:
@@ -497,9 +459,10 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
     (intersect.py:581-747): kernel B4 for coherent batches; otherwise rounds
     of B5 top traversal -> superleaf sort -> B6 pair intersection -> un-sort
     -> per-ray min until every stack drains, full-batch rounds while more
-    than C lanes are pending, then rounds over the compacted stragglers
-    (Q, Q_TAIL and C: wf_params, read at each call). Inactive lanes skip
-    traversal (a miss). No det-sign backside fixup here.
+    than C = WF_TAIL_C lanes are pending (WF_Q superleaf emits a ray a
+    round), then rounds over the compacted stragglers (WF_Q_TAIL emits).
+    Inactive lanes skip traversal (a miss). No det-sign backside fixup
+    here.
 
     `with_counts` (the debug heatmaps) skips B4 and also returns each ray's
     (n_tri, n_aabb): the triangles the pair kernel tested (its superleaf
@@ -539,7 +502,6 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
         return h
 
     S = bk.stack_depth(scene)
-    wf = wf_params(coherent)
     real = torch.arange(Bp, device=dev) < B
     if active is not None:
         real = real & _pad(active, pad, False)
@@ -560,12 +522,12 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
     def round_(cc, o, d, Q):
         return _wf_round(scene, W, tab, eps, o, d, cc, S=S, PB=PB, Q=Q)
 
-    C = min(Bp, wf["C"])
+    C = min(Bp, WF_TAIL_C)
     if Bp > C:
         while trace.sync(HOST_SYNCS, "wavefront", (c["sp"] > 0).sum() > C):
             ROUNDS["wavefront"] += 1
             with trace.span("wavefront.round"):
-                c = round_(c, rop, rdp, wf["Q"])
+                c = round_(c, rop, rdp, WF_Q)
 
     arange_b = torch.arange(Bp, device=dev)
     arange_c = torch.arange(C, device=dev)
@@ -583,7 +545,7 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
             cc["sp"] = torch.where(valid, cc["sp"], 0)
             cc["stack"] = c["stack"][:, idx]
             cc = round_(cc, V3(*(x[idx] for x in rop)),
-                        V3(*(x[idx] for x in rdp)), wf["Q_TAIL"])
+                        V3(*(x[idx] for x in rdp)), WF_Q_TAIL)
             # invalid slots land on Bp, dropped
             back = torch.where(valid, idx, Bp)
             out = {}

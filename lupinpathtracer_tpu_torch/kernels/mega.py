@@ -209,8 +209,9 @@ def _launch(scene, W4, pixel_idx, gx, gy, resolution, cam, is_ortho,
             accum_counter, rng_seed, spp, ptype, max_bounces, max_radiance,
             eps, sample_offset, lib=None):
     """The acc mode's launch, through `lib` if given (another build of
-    csrc/mega.cu: tools/prof_mega.py's occupancy sweep); up to the launch
-    call's return, the `b3.launch` span of core/trace.py."""
+    csrc/mega.cu, bound by `bind`: tools/prof_mega.py's occupancy sweep);
+    up to the launch call's return, the `b3.launch` span of
+    core/trace.py."""
 
     with trace.span("b3.launch"):
         from ..core.vec3 import V3
@@ -235,7 +236,7 @@ def _launch(scene, W4, pixel_idx, gx, gy, resolution, cam, is_ortho,
         p.seed = int(rng_seed) & 0xFFFFFFFF
         acc = [torch.empty(B, dtype=torch.float32, device=dev) for _ in range(3)]
         n_traced = torch.empty(B, dtype=torch.int32, device=dev)
-        lib = cuda_build.load("mega", bind) if lib is None else bind(lib)
+        lib = cuda_build.load("mega", bind) if lib is None else lib
         if B > 0:
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream

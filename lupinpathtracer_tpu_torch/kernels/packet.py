@@ -42,16 +42,6 @@ On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
 it runs the plain version below: the per-ray walk in lockstep over lanes,
 the same tables in the same order and the same f32 arithmetic, so kernel
 and plain version agree bit for bit.
-
-The coherence sort (pallas_packet.py:815-861, :896-930; on with `ray_sort`
-or LUPIN_PACKET_RAYSORT): the rays are sorted by `coherence_key` (inactive
-lanes last, then direction octant, then the 16^3 Morton cell of the
-origin), traversed by one B4 launch and scattered back. The sort and its
-inverse are PyTorch calls, as the JAX package's are XLA sorts outside its
-kernel. Since B4 computes each lane's own walk whatever the other lanes of
-its packet, the sorted result equals the unsorted one bit for bit; the sort
-only changes which lanes share a packet (the JAX kernel, which walks a
-block's union, may pick another triangle at an exact-t tie).
 """
 
 from __future__ import annotations
@@ -61,9 +51,8 @@ import os
 
 import torch
 
-from ..accel.superleaf import CH_HI, CH_ISLEAF, CH_LO, CH_STRIDE, TOP_FAN
+from ..accel.superleaf import TOP_FAN
 from ..core.device import on_cpu
-from ..core.vec3 import V3
 from . import bvh
 from . import dense_intersect as dk
 
@@ -93,52 +82,6 @@ def env_on(name: str) -> bool:
     and not "0" or "" (so VAR=0 means off)."""
 
     return os.environ.get(name, "") not in ("", "0")
-
-
-def coherence_key(scene, ro, rd, active=None):
-    """Per-ray traversal-coherence sort key, int32 ascending
-    (pallas_packet.py:815-861), equal lane for lane to the JAX package's:
-
-      bit 15      inactive (dead lanes sort last)
-      bits 12-14  direction octant (x, y, z negative)
-      bits 0-11   Morton code of the origin's 16^3 cell in the box of the
-                  root row's used children
-
-    The float steps are the JAX package's; the float-to-int conversion
-    saturates as XLA's does (an origin far outside the box, or NaN, lands
-    in cell 15 or 0)."""
-
-    t0 = scene.top_tab[0].float().reshape(TOP_FAN, CH_STRIDE)
-    used = (t0[:, CH_ISLEAF] > -0.5)[:, None]
-    lo = torch.where(used, t0[:, CH_LO], F32_MAX).amin(0)
-    hi = torch.where(used, t0[:, CH_HI], -F32_MAX).amax(0)
-    # A true division: `scalar / tensor` is a reciprocal times the scalar.
-    inv = torch.full_like(lo, 15.9999) / torch.clamp_min(hi - lo, 1e-20)
-
-    def q(x, c):
-        f = torch.nan_to_num(((x - lo[c]) * inv[c]).clamp(-1.0, 16.0), nan=0.0)
-        return f.to(torch.int32).clamp(0, 15)
-
-    def spread4(v):
-        return (v & 1) | ((v & 2) << 2) | ((v & 4) << 4) | ((v & 8) << 6)
-
-    i32 = torch.int32
-    morton = spread4(q(ro.x, 0)) | (spread4(q(ro.y, 1)) << 1) | (spread4(q(ro.z, 2)) << 2)
-    octant = ((rd.x < 0).to(i32) | ((rd.y < 0).to(i32) << 1)
-              | ((rd.z < 0).to(i32) << 2))
-    key = morton | (octant << 12)
-    if active is not None:
-        key = key | torch.where(active.to(torch.bool), 0, 1 << 15).to(i32)
-    return key
-
-
-def coherence_order(scene, ro, rd, active=None):
-    """(order, ro, rd, active) of the coherence sort: the stable ascending
-    order of coherence_key and the rays (and mask) gathered by it."""
-
-    order = torch.sort(coherence_key(scene, ro, rd, active), stable=True)[1]
-    act = None if active is None else active[order]
-    return order, V3(*(c[order] for c in ro)), V3(*(c[order] for c in rd)), act
 
 
 def stack_size(scene) -> int:
@@ -325,47 +268,44 @@ def packet_traverse_plain(scene, ro, rd, eps, W4, *, active=None,
     return bt, bu, bv, bd, bi, ia
 
 
-def packet_traverse(scene, ro, rd, eps, W4, *, active=None, with_attrs=False,
-                    ray_sort=None):
+def packet_traverse(scene, ro, rd, eps, W4, *, active=None, with_attrs=False):
     """B4: (t, u, v, det, tri) of the closest hit per ray, t = F32_MAX on a
     miss (u = v = det = 0, tri 0), tri a repacked-soup index (two-level
     scenes: global superleaf * stride + lane); with `with_attrs`
     (single-level scenes only), also the (IA_ROWS[_NM], B) interpolated
     winner rows (kernels/bvh.py IA_* layout, zeros on miss and inactive
-    lanes). `ray_sort` (None: LUPIN_PACKET_RAYSORT) traverses the rays in
-    coherence_key order and returns the results in the callers' order."""
+    lanes)."""
 
-    if ray_sort is None:
-        ray_sort = env_on("LUPIN_PACKET_RAYSORT")
-    if not ray_sort:
-        return _traverse(scene, ro, rd, eps, W4, active, with_attrs)
-    order, sro, srd, sact = coherence_order(scene, ro, rd, active)
-    res = _traverse(scene, sro, srd, eps, W4, sact, with_attrs)
-    out = []
-    for x in res:
-        y = torch.empty_like(x)
-        y[..., order] = x
-        out.append(y)
-    return tuple(out)
-
-
-def _traverse(scene, ro, rd, eps, W4, active, with_attrs):
     if on_cpu(ro.x):
         return packet_traverse_plain(scene, ro, rd, eps, W4, active=active,
                                      with_attrs=with_attrs)
 
     from . import cuda_build
 
-    out = _launch(cuda_build.load("packet"), scene, ro, rd, eps, W4, active,
-                  with_attrs)
+    out = _launch(cuda_build.load("packet", bind), scene, ro, rd, eps, W4,
+                  active, with_attrs)
     if ro.x.shape[0] > 0:
         LAUNCHES["packet_traverse"] += 1
     return out
 
 
+def bind(lib):
+    """Declares lupin_packet_traverse's signature on a loaded build of
+    csrc/packet.cu, once: cuda_build.load calls it where it opens the
+    library, tools/prof_packet.py on its copies. Returns `lib`."""
+
+    lib.lupin_packet_traverse.restype = ctypes.c_int
+    lib.lupin_packet_traverse.argtypes = (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8)
+    return lib
+
+
 def _launch(lib, scene, ro, rd, eps, W4, active, with_attrs):
     """B4's kernel from the loaded library `lib` (the checkout's build of
-    csrc/packet.cu, or a copy of it: tools/prof_packet.py)."""
+    csrc/packet.cu, or a copy of it: tools/prof_packet.py), bound by
+    `bind`."""
 
     from . import cuda_build
 
@@ -375,11 +315,6 @@ def _launch(lib, scene, ro, rd, eps, W4, active, with_attrs):
         raise ValueError(f"a top tree of depth {scene.top_depth} needs a stack "
                          f"of {SM} > {PACKET_STACK_MAX} entries")
     fn = lib.lupin_packet_traverse
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 8)
     dev = ro.x.device
     B = ro.x.shape[0]
     geo, refs = bvh.top_rows(scene.top_tab)

@@ -13,14 +13,12 @@ with kernels B4 (camera rays) and B5/B6/B7 (bounces). The falsecolor AOVs
 trace camera rays (B2; B4, with B7 on two-level scenes); the debug
 heatmaps count a camera ray's traversal tests (B5/B6) or its bounces.
 
-Environment knobs, read at each dispatch as in the JAX package:
+The one environment knob, read at each dispatch as in the JAX package:
 LUPIN_SPP_STREAMS (concurrent sample streams per pixel on the wavefront
-route, integrators.pathtrace_spp; 1 unless it is >= 1 and divides spp),
-LUPIN_DISPATCH_RAY_STRIDE_BUDGET and LUPIN_DISPATCH_TILE_FLOOR (the
-self-bounding split of a BVH frame, dispatch_tiles: by default a frame is
-split only where its working set, dispatch_bytes_per_lane per pixel, would
-pass half of the device's memory; the budget variable restores the JAX
-package's rays x stride rule).
+route, integrators.pathtrace_spp; 1 unless it is >= 1 and divides spp).
+The self-bounding split of a BVH frame (dispatch_tiles) splits a frame
+only where its working set, dispatch_bytes_per_lane per pixel, would pass
+half of the device's memory.
 """
 
 from __future__ import annotations
@@ -205,11 +203,9 @@ _VALIDATED_SCENES: set = set()
 # working set would pass half of the device's memory is split into square
 # tiles (the largest power of two from 1024 down to the floor, renderer.py's
 # search): the other half holds the scene, the image and the allocator's
-# slack, which share the device with the dispatch. The JAX package's rule
-# instead bounds rays x superleaf stride (700,000,000: its dense
-# f32[rays, 4, stride] fetch tensor in TPU HBM, which the port never
-# builds); LUPIN_DISPATCH_RAY_STRIDE_BUDGET selects that rule with the
-# budget given, and LUPIN_DISPATCH_TILE_FLOOR moves the floor.
+# slack, which share the device with the dispatch. The JAX package bounds
+# rays x superleaf stride instead: its budget sizes a dense
+# f32[rays, 4, stride] fetch tensor in TPU HBM, which the port never builds.
 DISPATCH_TILE_FLOOR = 128
 DISPATCH_MEMORY_SHARE = 0.5
 
@@ -233,19 +229,18 @@ def dispatch_bytes_per_lane(scene, baked: BakedPathtraceParams, ptype: int) -> i
     dispatch of a BVH scene: per traced ray (MIS traces three slots a lane,
     DIRECT two), the wavefront's stack (bk.stack_depth int32 rows, twice:
     the straggler scatter copies it), its sp and best_* rows (twice, the
-    round's and the next), the padded rays and Q pair slots at the larger
-    of the switches' Q (wf_params), and B7's attribute rows (IA_ROWS[_NM]:
-    its output, the scatter's and the mask's copies) with its sort; per
-    lane the integrator's state and temporaries and the carried attribute
-    rows; times the sample streams (LUPIN_SPP_STREAMS) the dispatch runs."""
+    round's and the next), the padded rays and WF_Q pair slots, and B7's
+    attribute rows (IA_ROWS[_NM]: its output, the scatter's and the mask's
+    copies) with its sort; per lane the integrator's state and temporaries
+    and the carried attribute rows; times the sample streams
+    (LUPIN_SPP_STREAMS) the dispatch runs."""
 
     from ..kernels import bvh as bk
 
     S = bk.stack_depth(scene)
-    Q = max(intersect.wf_params(True)["Q"], intersect.wf_params(False)["Q"])
     ia = bk.IA_ROWS_NM if scene.any_normal_maps else bk.IA_ROWS
     slots = {int(PathtraceType.MIS): 3, int(PathtraceType.DIRECT): 2}.get(int(ptype), 1)
-    wavefront = 2 * 4 * S + 2 * 6 * 4 + 6 * 4 + Q * _PAIR_BYTES
+    wavefront = 2 * 4 * S + 2 * 6 * 4 + 6 * 4 + intersect.WF_Q * _PAIR_BYTES
     fetch = 3 * ia * 4 + 48
     path = (_PATH_WORDS + ia) * 4
     return _streams(int(baked.samples_per_pixel)) * (slots * (wavefront + fetch) + path)
@@ -265,22 +260,16 @@ def device_memory_bytes(device) -> int:
 def dispatch_tiles(scene, image_shape, baked: BakedPathtraceParams,
                    ptype: int, device):
     """The self-bound's tile size, or None when the frame is one dispatch:
-    by the working-set rule (lanes x dispatch_bytes_per_lane against
-    DISPATCH_MEMORY_SHARE of device_memory_bytes), or by the JAX package's
-    rays x stride rule when LUPIN_DISPATCH_RAY_STRIDE_BUDGET is set."""
+    lanes x dispatch_bytes_per_lane against DISPATCH_MEMORY_SHARE of
+    device_memory_bytes, tiles no smaller than DISPATCH_TILE_FLOOR."""
 
     H, W = image_shape[:2]
-    raw = os.environ.get("LUPIN_DISPATCH_RAY_STRIDE_BUDGET")
-    if raw is not None:
-        per_lane, budget = max(int(scene.sl_stride), 1), int(raw)
-    else:
-        per_lane = dispatch_bytes_per_lane(scene, baked, ptype)
-        budget = int(DISPATCH_MEMORY_SHARE * device_memory_bytes(device))
+    per_lane = dispatch_bytes_per_lane(scene, baked, ptype)
+    budget = int(DISPATCH_MEMORY_SHARE * device_memory_bytes(device))
     if W * H * per_lane <= budget:
         return None
     ts = 1024
-    floor = int(os.environ.get("LUPIN_DISPATCH_TILE_FLOOR", DISPATCH_TILE_FLOOR))
-    while ts > floor and ts * ts * per_lane > budget:
+    while ts > DISPATCH_TILE_FLOOR and ts * ts * per_lane > budget:
         ts //= 2
     return ts
 

@@ -579,7 +579,7 @@ def flatten_numpy(
                 f"two-level top tree over {G} instance-superleaves: past the"
                 " JAX package's layout bound (262144). Bounce batches take"
                 " the sort wavefront as always; camera batches take it too"
-                " beyond LUPIN_PACKET_MAX_GSL (131072 by default) superleaves"
+                " beyond intersect.PACKET_MAX_GSL (131072) superleaves"
                 " (kernels/intersect.py::packet_eligible). A larger superleaf"
                 " stride (sl_stride_opt) gives fewer, larger superleaves.",
                 stacklevel=2,

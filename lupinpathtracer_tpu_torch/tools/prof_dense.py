@@ -88,11 +88,13 @@ def sweep(reps: int = 10) -> dict:
     from ..kernels import bvh, cuda_build
 
     dev = torch.device("cuda", 0)
-    builds = build_copies("dense_intersect", VARIANTS)
+    builds = {k: (dk.bind(lib), log)
+              for k, (lib, log) in build_copies("dense_intersect", VARIANTS).items()}
     eps = float(np.float32(1e-3))
     cases = shapes(dev)
-    ref = {k: dk._launch(cuda_build.load("dense_intersect"), bvh.pair_table(W), R,
-                         eps, W.shape[2], A) for k, (W, R, A) in cases.items()}
+    shipped = cuda_build.load("dense_intersect", dk.bind)
+    ref = {k: dk._launch(shipped, bvh.pair_table(W), R, eps, W.shape[2], A)
+           for k, (W, R, A) in cases.items()}
     times = {v: {k: [] for k in cases} for v in VARIANTS}
     for order in (list(VARIANTS), list(VARIANTS)[::-1]):
         for v in order:

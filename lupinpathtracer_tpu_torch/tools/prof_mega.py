@@ -90,7 +90,8 @@ def sweep(reps: int = 3) -> dict:
     build's output differs from the checkout's build."""
 
     dev = torch.device("cuda", 0)
-    builds = dict(zip(VALUES, build_copies("mega", VARIANTS).values()))
+    builds = {v: (mega.bind(lib), log) for v, (lib, log)
+              in zip(VALUES, build_copies("mega", VARIANTS).values())}
     scene, W, args, eps = main_path_launch(dev)
     ref = mega._launch(scene, W, *args, eps, 0)
     times = {v: [] for v in VALUES}

@@ -61,7 +61,8 @@ def sweep(reps: int = 5):
     from ..io import synthetic
 
     dev = torch.device("cuda", 0)
-    builds = build_copies("packet", VARIANTS)
+    builds = {k: (packet.bind(lib), log)
+              for k, (lib, log) in build_copies("packet", VARIANTS).items()}
     eps = float(np.float32(PathtraceDesc().advanced.ray_epsilon))
     scenes = {
         "terrain2M": lambda: synthetic.build_scene_terrain(n_tris=2_000_000, seed=0),

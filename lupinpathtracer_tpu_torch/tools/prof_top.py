@@ -122,11 +122,12 @@ def shapes(scene, desc, width: int, height: int, spp: int, bounces: int,
 
     rec = record_launches(scene, desc, width, height, spp, bounces)
     out = {}
-    for name, lib in {"shipped": cuda_build.load("bvh"), **libs}.items():
+    shipped = cuda_build.load("bvh", bvh.bind)
+    for name, lib in {"shipped": shipped, **libs}.items():
         calls = [lambda r=r, lib=lib: bvh._top_launch(
             lib, r[0], r[1], r[2], r[3], r[4].clone(), r[5], **r[6]) for r in rec]
         timed = kernel_ms_each(calls, "top_kernel", reps)
-        ref = [bvh._top_launch(cuda_build.load("bvh"), r[0], r[1], r[2], r[3],
+        ref = [bvh._top_launch(shipped, r[0], r[1], r[2], r[3],
                                r[4].clone(), r[5], **r[6]) for r in rec]
         for call, k, r in zip(calls, ref, rec):
             if max_abs_diff(call(), k, r[6]["S"]) != 0.0:
@@ -157,7 +158,7 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    libs = {k: v[0] for k, v in build_copies("bvh", SHAPES).items()}
+    libs = {k: bvh.bind(v[0]) for k, v in build_copies("bvh", SHAPES).items()}
     dev = torch.device("cuda", 0)
     for name, make in (
             ("terrain2M", lambda: synthetic.build_scene_terrain(n_tris=2_000_000, seed=0)),

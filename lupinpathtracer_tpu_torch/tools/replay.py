@@ -308,14 +308,15 @@ def sphere_cornell(n_lat: int = 14, n_lon: int = 20):
 
 
 def _baseline_libs(root: str) -> dict:
-    """{source: loaded library} of the earlier checkout's dense_intersect.cu
-    and bvh.cu, built into this checkout's build directory."""
+    """{source: loaded and bound library} of the earlier checkout's
+    dense_intersect.cu and bvh.cu, built into this checkout's build
+    directory."""
 
     from .prof_pair import build_copies
 
     csrc = os.path.join(root, "lupinpathtracer_tpu_torch", "csrc")
-    return {name: build_copies(name, {"baseline": ()}, csrc=csrc)["baseline"][0]
-            for name in ("dense_intersect", "bvh")}
+    return {name: bind(build_copies(name, {"baseline": ()}, csrc=csrc)["baseline"][0])
+            for name, bind in (("dense_intersect", dk.bind), ("bvh", bvh.bind))}
 
 
 def main(argv=None) -> int:

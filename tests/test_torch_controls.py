@@ -1,19 +1,21 @@
-"""PyTorch port, the traversal controls: the JAX package's switches and B4's
-coherence sort against the JAX package, and the port's dispatch self-bound.
+"""PyTorch port, the traversal controls: the JAX package's route switches,
+the constants that replaced its other switches, B4's per-lane exactness
+and the port's dispatch self-bound.
 
-- coherence_key equals JAX's _coherence_key lane for lane; the sorted B4
-  (plain version) equals the unsorted one bit for bit and matches the JAX
-  stack walk and the JAX packet kernel with its ray sort (interpret mode);
 - _use_packet agrees with JAX's over LUPIN_NO_PACKET x LUPIN_FORCE_PACKET
   x coherent; a render under LUPIN_FORCE_PACKET (B4 on bounce batches)
   matches JAX's;
-- the wavefront's LUPIN_WF_Q / _Q_DIV / _Q_TAIL / _TAIL_C change its rounds,
-  not its result, and one setting matches the JAX wavefront under the same
-  variables; invalid values raise;
+- the eight retired switches change nothing: a render with one of them set
+  is bit-identical to one without and stays one dispatch;
+- B4's plain version is exact per lane: a permutation of the rays permutes
+  its results bit for bit;
+- the wavefront's round sizes (WF_Q, WF_Q_TAIL, WF_TAIL_C) change its
+  rounds, not its result, and one setting matches the JAX wavefront under
+  the same sizes (its environment variables);
 - packet_eligible has no TPU memory budget, and keeps the int32 id guard
-  and LUPIN_PACKET_MAX_GSL as JAX's does;
-- the self-bound: LUPIN_DISPATCH_RAY_STRIDE_BUDGET tiles as the JAX package
-  does; by default a CPU frame is one dispatch.
+  and PACKET_MAX_GSL as JAX's does;
+- the self-bound: a frame the working-set rule splits tiles as the JAX
+  package's rule does; by default a CPU frame is one dispatch.
 
 Scenes and rays are tests/test_torch_bvh.py's (the ~1.5k-triangle sphere
 scene and the 2048-triangle terrain). Tolerances are that file's: hit flags
@@ -35,7 +37,6 @@ import lupinpathtracer_tpu as jl
 from lupinpathtracer_tpu.core import vec3 as jv3
 from lupinpathtracer_tpu.io import synthetic as jsyn
 from lupinpathtracer_tpu.kernels import intersect as jint
-from lupinpathtracer_tpu.kernels import pallas_packet as jpp
 from lupinpathtracer_tpu.render import renderer as jrenderer
 from lupinpathtracer_tpu.scene.flatten import build_scene_tpu
 
@@ -49,11 +50,12 @@ from lupinpathtracer_tpu_torch.render import renderer as trenderer
 
 from test_torch_bvh import EPS, T, both, rays
 
-SWITCHES = ("LUPIN_NO_PACKET", "LUPIN_FORCE_PACKET", "LUPIN_PACKET_RAYSORT",
-            "LUPIN_PACKET_MAX_GSL", "LUPIN_WF_Q", "LUPIN_WF_Q_DIV",
-            "LUPIN_WF_Q_TAIL", "LUPIN_WF_TAIL_C",
-            "LUPIN_DISPATCH_RAY_STRIDE_BUDGET", "LUPIN_DISPATCH_TILE_FLOOR",
-            "LUPIN_SPP_STREAMS")
+# The port's route switches, then the retired ones (read by the JAX
+# package, which some tests here set for its side).
+SWITCHES = ("LUPIN_NO_PACKET", "LUPIN_FORCE_PACKET", "LUPIN_SPP_STREAMS")
+RETIRED = ("LUPIN_PACKET_RAYSORT", "LUPIN_PACKET_MAX_GSL", "LUPIN_WF_Q",
+           "LUPIN_WF_Q_DIV", "LUPIN_WF_Q_TAIL", "LUPIN_WF_TAIL_C",
+           "LUPIN_DISPATCH_RAY_STRIDE_BUDGET", "LUPIN_DISPATCH_TILE_FLOOR")
 
 
 @pytest.fixture(autouse=True)
@@ -61,7 +63,7 @@ def _clean_env(monkeypatch):
     """Each test starts with no switch set, on one PyTorch thread (the
     suite runs in several worker processes at once)."""
 
-    for name in SWITCHES:
+    for name in SWITCHES + RETIRED:
         monkeypatch.delenv(name, raising=False)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -76,80 +78,6 @@ def scenes():
 
 def _active(B, seed):
     return np.random.default_rng(seed).random(B) < 0.7
-
-
-@pytest.mark.parametrize("name", ["spheres", "terrain"])
-def test_coherence_key_matches_jax(scenes, name):
-    """coherence_key equals JAX _coherence_key on every lane, without and
-    with an active mask; the rays span the root box and beyond it."""
-
-    tpu, ts, span = scenes[name]
-    (jro, jrd), (tro, trd) = rays(700, 2.0 * span, seed=4)
-    act = _active(700, 5)
-    for a in (None, act):
-        jk = jpp._coherence_key(tpu, jro, jrd, None if a is None else jnp.asarray(a))
-        tk = tpk.coherence_key(ts, tro, trd, None if a is None else T(a))
-        assert tk.dtype == torch.int32
-        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
-    assert len(np.unique(tk.numpy() & 0xFFF)) > 8  # many origin cells
-
-
-@pytest.mark.parametrize("with_attrs", [False, True])
-@pytest.mark.parametrize("name", ["spheres", "terrain"])
-def test_sorted_b4_plain_equals_unsorted(scenes, name, with_attrs, monkeypatch):
-    """B4 with the coherence sort (plain version, CPU tensors) equals B4
-    without it bit for bit, with and without an active mask, by argument
-    and through LUPIN_PACKET_RAYSORT; and matches the JAX stack walk."""
-
-    tpu, ts, span = scenes[name]
-    (jro, jrd), (tro, trd) = rays(300, span, seed=9)
-    W = tint.scene_tri_matrix(ts)
-    act = T(_active(300, 2))
-    sorts = []
-    real = tpk.coherence_order
-    monkeypatch.setattr(tpk, "coherence_order",
-                        lambda *a: sorts.append(1) or real(*a))
-    for a in (None, act):
-        plain = tpk.packet_traverse(ts, tro, trd, EPS, W, active=a,
-                                    with_attrs=with_attrs, ray_sort=False)
-        srt = tpk.packet_traverse(ts, tro, trd, EPS, W, active=a,
-                                  with_attrs=with_attrs, ray_sort=True)
-        assert len(plain) == len(srt) == (6 if with_attrs else 5)
-        for x, y in zip(plain, srt):
-            assert torch.equal(x, y)
-    with monkeypatch.context() as m:
-        m.setenv("LUPIN_PACKET_RAYSORT", "1")
-        env = tpk.packet_traverse(ts, tro, trd, EPS, W, active=act,
-                                  with_attrs=with_attrs)
-    assert all(torch.equal(x, y) for x, y in zip(plain, env))
-    assert len(sorts) == 3
-    t, tri = plain[0].numpy(), plain[4].numpy()
-    ref = jint.closest_hit_bvh(tpu, jro, jrd, EPS)
-    hit = np.asarray(ref.hit) & act.numpy()
-    np.testing.assert_array_equal(t < 1e30, hit)
-    np.testing.assert_allclose(t[hit], np.asarray(ref.dst)[hit], rtol=5e-4, atol=1e-5)
-    assert (tri == np.asarray(ref.tri))[hit].mean() >= 0.95
-
-
-def test_sorted_b4_matches_jax_ray_sort(scenes):
-    """The port's sorted B4 against JAX packet_traverse(ray_sort=True), its
-    Pallas kernel in interpret mode, 256 terrain rays with an active mask."""
-
-    tpu, ts, span = scenes["terrain"]
-    (jro, jrd), (tro, trd) = rays(256, span, seed=6)
-    act = _active(256, 7)
-    jt, _, _, _, jtri = jpp.packet_traverse(
-        tpu, jro, jrd, EPS, jint._wavefront_tri_matrix(tpu),
-        active=jnp.asarray(act), ray_sort=True)
-    t, _, _, _, tri = tpk.packet_traverse(
-        ts, tro, trd, EPS, tint.scene_tri_matrix(ts), active=T(act),
-        ray_sort=True)
-    hit = np.asarray(jt) < 1e30
-    assert hit.any() and (~hit).any() and not hit[~act].any()
-    np.testing.assert_array_equal(t.numpy() < 1e30, hit)
-    np.testing.assert_allclose(t.numpy()[hit], np.asarray(jt)[hit],
-                               rtol=5e-4, atol=1e-5)
-    assert (tri.numpy() == np.asarray(jtri))[hit].mean() >= 0.95
 
 
 @pytest.mark.parametrize("no_packet,force_packet",
@@ -218,7 +146,94 @@ def test_force_packet_render_matches_jax(monkeypatch):
     assert (np.abs(forced - default) > 1e-3).mean() < 0.02
 
 
-WF_SETTINGS = list(itertools.product(["1", "8"], ["1", "32"], ["16", "2048"]))
+def _count(monkeypatch, module, name):
+    calls = []
+    real = getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+# Each retired switch with what once let it act on a 16x16 frame, set on
+# both sides: B4 on every batch for its coherence sort and its superleaf
+# envelope, the sort wavefront on every batch for its round sizes, and each
+# of the two dispatch variables for the other. The values are those that
+# once changed the route, the tiles or the rounds, or raised.
+FORCE, NO_PACKET = {"LUPIN_FORCE_PACKET": "1"}, {"LUPIN_NO_PACKET": "1"}
+RETIRED_CASES = [
+    ("LUPIN_PACKET_RAYSORT", "1", FORCE),
+    ("LUPIN_PACKET_MAX_GSL", "0", FORCE),
+    ("LUPIN_WF_Q", "eight", NO_PACKET),
+    ("LUPIN_WF_Q_DIV", "0", NO_PACKET),
+    ("LUPIN_WF_Q_TAIL", "-1", NO_PACKET),
+    ("LUPIN_WF_TAIL_C", "1.5", NO_PACKET),
+    ("LUPIN_DISPATCH_RAY_STRIDE_BUDGET", "1", {"LUPIN_DISPATCH_TILE_FLOOR": "8"}),
+    ("LUPIN_DISPATCH_TILE_FLOOR", "8", {"LUPIN_DISPATCH_RAY_STRIDE_BUDGET": "1"}),
+]
+
+
+@pytest.fixture(scope="module")
+def terrain_render():
+    """The small terrain (a top tree over 12 superleaves, which B4 and the
+    wavefront's rounds walk) and a 16x16, 1-spp, 2-bounce NAIVE render of
+    it on CPU tensors."""
+
+    tsc, tc = tsyn.build_scene_terrain(n_tris=2048)
+    ts = tl.build_scene_torch(tsc, device="cpu")
+    assert not ts.top_root_is_leaf and tint.packet_eligible(ts)
+    desc = _terrain_desc(tl, tc)
+    baked = tl.BakedPathtraceParams(max_bounces=2, samples_per_pixel=1)
+    return lambda: tl.render_progressive(ts, desc, baked, 16, 16, 1, device="cpu")
+
+
+@pytest.mark.parametrize("name,value,context", RETIRED_CASES,
+                         ids=[c[0] for c in RETIRED_CASES])
+def test_retired_switch_changes_nothing(terrain_render, name, value, context,
+                                        monkeypatch):
+    """A render with a retired switch set is bit-identical to one without
+    it, with what once let it act set on both sides, and is one dispatch:
+    the port reads the variable nowhere."""
+
+    for k, v in context.items():
+        monkeypatch.setenv(k, v)
+    dispatches = _count(monkeypatch, trenderer, "_render_pathtrace")
+    packets = _count(monkeypatch, tpk, "packet_traverse")
+    want = terrain_render()
+    n_packets = len(packets)
+    monkeypatch.setenv(name, value)
+    got = terrain_render()
+    assert dispatches == [1, 1]
+    assert len(packets) == 2 * n_packets
+    assert (n_packets > 1) == (context is FORCE)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("with_attrs", [False, True])
+@pytest.mark.parametrize("name", ["spheres", "terrain"])
+def test_packet_traverse_is_lane_independent(scenes, name, with_attrs):
+    """B4's plain version on a seeded permutation of 2,048 rays and their
+    active mask returns the permuted results of the unpermuted call, bit
+    for bit, attribute rows included: each lane's result is its own walk's,
+    whatever the other lanes of its packet."""
+
+    _, ts, span = scenes[name]
+    _, (tro, trd) = rays(2048, span, seed=9)
+    W = tint.scene_tri_matrix(ts)
+    act = T(_active(2048, 2))
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(2048))
+    ref = tpk.packet_traverse_plain(ts, tro, trd, EPS, W, active=act,
+                                    with_attrs=with_attrs)
+    got = tpk.packet_traverse_plain(
+        ts, tv3.V3(*(c[perm] for c in tro)), tv3.V3(*(c[perm] for c in trd)),
+        EPS, W, active=act[perm], with_attrs=with_attrs)
+    assert len(ref) == len(got) == (6 if with_attrs else 5)
+    for x, y in zip(ref, got):
+        assert torch.equal(x[..., perm], y)
+    hit = ref[0] < 1e30
+    assert hit.any() and (~hit).any() and not hit[~act].any()
+
+
+WF_SETTINGS = list(itertools.product([1, 8], [1, 32], [16, 2048]))
 
 
 @pytest.fixture(scope="module")
@@ -236,18 +251,18 @@ def wf_case(scenes):
 @pytest.mark.parametrize("q,q_tail,tail_c", WF_SETTINGS)
 def test_wavefront_switches_keep_the_result(wf_case, q, q_tail, tail_c,
                                             monkeypatch):
-    """The wavefront under LUPIN_WF_Q (coherent batches, LUPIN_NO_PACKET
-    keeping them off B4) and LUPIN_WF_Q_DIV (bounce batches) in {1, 8},
-    LUPIN_WF_Q_TAIL in {1, 32} and LUPIN_WF_TAIL_C in {16, 2048}: t equal
-    to the default's on every lane, the triangle except at exact-t ties,
-    and more rounds (host syncs) where Q or Q_TAIL is 1."""
+    """The wavefront with WF_Q in {1, 8}, WF_Q_TAIL in {1, 32} and WF_TAIL_C
+    in {16, 2048}, on coherent batches (LUPIN_NO_PACKET keeping them off
+    B4) and bounce batches: t equal to the default's on every lane, the
+    triangle except at exact-t ties, the same rounds (host syncs) for
+    both, and more of them where WF_Q and WF_Q_TAIL are 1."""
 
     tpu, ts, _, (tro, trd), act, ref = wf_case
-    for name, val in (("LUPIN_WF_Q", q), ("LUPIN_WF_Q_DIV", q),
-                      ("LUPIN_WF_Q_TAIL", q_tail), ("LUPIN_WF_TAIL_C", tail_c),
-                      ("LUPIN_NO_PACKET", "1")):
-        monkeypatch.setenv(name, val)
-    assert tint.wf_params(False) == dict(Q=int(q), Q_TAIL=int(q_tail), C=int(tail_c))
+    defaults = dict(WF_Q=tint.WF_Q, WF_Q_TAIL=tint.WF_Q_TAIL)
+    monkeypatch.setattr(tint, "WF_Q", q)
+    monkeypatch.setattr(tint, "WF_Q_TAIL", q_tail)
+    monkeypatch.setattr(tint, "WF_TAIL_C", tail_c)
+    monkeypatch.setenv("LUPIN_NO_PACKET", "1")
     syncs = []
     for coherent in (True, False):
         tint.HOST_SYNCS["wavefront"] = 0
@@ -258,25 +273,28 @@ def test_wavefront_switches_keep_the_result(wf_case, q, q_tail, tail_c,
         tie = h.tri != ref.tri
         assert (h.dst[tie] == ref.dst[tie]).all() and tie.float().mean() <= 0.01
     assert syncs[0] == syncs[1]
-    if (q, q_tail) == ("1", "1"):
+    if (q, q_tail) == (1, 1):
         tint.HOST_SYNCS["wavefront"] = 0
-        monkeypatch.delenv("LUPIN_WF_Q_DIV")
-        monkeypatch.delenv("LUPIN_WF_Q_TAIL")
+        for k, v in defaults.items():
+            monkeypatch.setattr(tint, k, v)
         tint.closest_hit_wavefront(ts, tro, trd, EPS, active=T(act), coherent=False)
         assert tint.HOST_SYNCS["wavefront"] < syncs[1]
 
 
 def test_wavefront_switches_match_jax(wf_case, monkeypatch):
-    """One setting (LUPIN_WF_Q_DIV 2, LUPIN_WF_Q_TAIL 4, LUPIN_WF_TAIL_C
-    256; the JAX kernels' blocks need a capacity of whole 128-lane rows) in
-    both packages: the port against the JAX sort wavefront (its Pallas
-    kernels in interpret mode) on 300 of the rays."""
+    """One setting (Q 2, Q_TAIL 4, C 256; the JAX kernels' blocks need a
+    capacity of whole 128-lane rows) in both packages, the port's constants
+    and the JAX package's variables: the port against the JAX sort
+    wavefront (its Pallas kernels in interpret mode) on 300 of the rays."""
 
     tpu, ts, (jro, jrd), (tro, trd), act, _ = wf_case
     n = 300
     for name, val in (("LUPIN_WF_Q_DIV", "2"), ("LUPIN_WF_Q_TAIL", "4"),
                       ("LUPIN_WF_TAIL_C", "256")):
         monkeypatch.setenv(name, val)
+    monkeypatch.setattr(tint, "WF_Q", 2)
+    monkeypatch.setattr(tint, "WF_Q_TAIL", 4)
+    monkeypatch.setattr(tint, "WF_TAIL_C", 256)
 
     def cut(v, V):
         return V(*(c[:n] for c in (v.x, v.y, v.z)))
@@ -293,29 +311,11 @@ def test_wavefront_switches_match_jax(wf_case, monkeypatch):
     assert (h.tri.numpy() == np.asarray(jw.tri))[hit].mean() >= 0.95
 
 
-@pytest.mark.parametrize("name,value", [
-    ("LUPIN_WF_Q", "eight"), ("LUPIN_WF_Q_DIV", "0"), ("LUPIN_WF_Q_TAIL", "-1"),
-    ("LUPIN_WF_TAIL_C", "1.5"), ("LUPIN_PACKET_MAX_GSL", "many")])
-def test_invalid_switch_raises(scenes, name, value, monkeypatch):
-    """A non-integer or < 1 value raises a ValueError naming the variable
-    (LUPIN_PACKET_MAX_GSL may be 0, which turns B4 off as in JAX)."""
-
-    _, ts, span = scenes["terrain"]
-    _, (tro, trd) = rays(64, span, seed=1)
-    monkeypatch.setenv(name, value)
-    monkeypatch.setenv("LUPIN_NO_PACKET", "1")  # coherent batches too
-    with pytest.raises(ValueError, match=name):
-        if name == "LUPIN_PACKET_MAX_GSL":
-            tint.packet_eligible(ts)
-        else:
-            tint.closest_hit_wavefront(ts, tro, trd, EPS,
-                                       coherent=name != "LUPIN_WF_Q_DIV")
-
-
 def test_packet_gate_has_no_tpu_budget(scenes, monkeypatch):
     """A top table of more than 23,437 rows (the JAX package's VMEM budget
     for the lane-padded table) keeps B4 in the port and loses it in JAX;
-    the int32 id guard and LUPIN_PACKET_MAX_GSL gate both packages alike,
+    the int32 id guard and the superleaf envelope (the port's
+    PACKET_MAX_GSL, the JAX package's variable) gate both packages alike,
     with 0 turning B4 off."""
 
     tpu, ts, _ = scenes["terrain"]
@@ -325,10 +325,13 @@ def test_packet_gate_has_no_tpu_budget(scenes, monkeypatch):
     jbig = tpu.replace(top_tab=jnp.zeros((rows, tpu.top_tab.shape[1]), jnp.float32))
     assert tint.packet_eligible(ts) and not jint.packet_eligible(jbig)
     n = ts.sl_count
-    for val, want in ((str(n), True), (str(n - 1), False), ("0", False)):
-        monkeypatch.setenv("LUPIN_PACKET_MAX_GSL", val)
+    default = tint.PACKET_MAX_GSL
+    for val, want in ((n, True), (n - 1, False), (0, False)):
+        monkeypatch.setenv("LUPIN_PACKET_MAX_GSL", str(val))
+        monkeypatch.setattr(tint, "PACKET_MAX_GSL", val)
         assert tint.packet_eligible(ts) == jint.packet_eligible(tpu) == want
     monkeypatch.delenv("LUPIN_PACKET_MAX_GSL")
+    monkeypatch.setattr(tint, "PACKET_MAX_GSL", default)
     # The smallest stride (a multiple of 512, as the builder's) at which
     # the last superleaf's triangle ids pass 2**31 - 1.
     stride = -(-((2**31 - 1) // n + 1) // 512) * 512
@@ -355,33 +358,28 @@ def _cornell_bvh():
     return ts, desc, build_scene_tpu(jscene, dense_max_tris=8), jcams
 
 
-def _count(monkeypatch, module, name):
-    calls = []
-    real = getattr(module, name)
-    monkeypatch.setattr(module, name,
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
-    return calls
-
-
-def test_budget_tiles_as_jax(monkeypatch):
-    """LUPIN_DISPATCH_RAY_STRIDE_BUDGET=1 (floor 8): as many dispatches as
-    the JAX package makes (tests/test_render.py::
+def test_self_bound_tiles_as_jax(monkeypatch):
+    """A working-set budget below one 8x8 tile's, with a floor of 8, splits
+    the 16x16 frame into as many dispatches as the JAX package makes under
+    its rays x stride budget of 1 and floor of 8 (tests/test_render.py::
     test_auto_tile_self_bounding), and the tiled image equals the whole
-    one; without the variable the frame is one dispatch."""
+    one; by default the frame is one dispatch."""
 
     ts, desc, tpu, jcams = _cornell_bvh()
     baked = tl.BakedPathtraceParams(max_bounces=2, samples_per_pixel=1)
     port = _count(monkeypatch, trenderer, "_render_pathtrace")
     full = tl.render_progressive(ts, desc, baked, 16, 16, 1, device="cpu")
     assert len(port) == 1
-    monkeypatch.setenv("LUPIN_DISPATCH_RAY_STRIDE_BUDGET", "1")
-    monkeypatch.setenv("LUPIN_DISPATCH_TILE_FLOOR", "8")
+    monkeypatch.setattr(trenderer, "DISPATCH_MEMORY_SHARE", 0.0)
+    monkeypatch.setattr(trenderer, "DISPATCH_TILE_FLOOR", 8)
     port.clear()
     tiled = tl.render_progressive(ts, desc, baked, 16, 16, 1, device="cpu")
     jdesc = jl.PathtraceDesc()
     jdesc.camera_transform = jcams[0].transform
     jdesc.camera_params = jcams[0].params
     jdesc.pathtrace_type = jl.PathtraceType.NAIVE
+    monkeypatch.setenv("LUPIN_DISPATCH_RAY_STRIDE_BUDGET", "1")
+    monkeypatch.setenv("LUPIN_DISPATCH_TILE_FLOOR", "8")
     # JAX's dispatches counted, not run (the image passes through).
     jcalls = []
     monkeypatch.setattr(jrenderer, "_dispatch_packet_safe",
@@ -394,11 +392,10 @@ def test_budget_tiles_as_jax(monkeypatch):
 
 
 def test_default_self_bound_is_the_working_set(monkeypatch):
-    """Without the budget variable a frame splits only where lanes x
-    dispatch_bytes_per_lane passes half of the device's memory (here the
-    host's): a 1920x1080 terrain frame is one dispatch on the CPU; the
-    bytes per lane grow with the top tree's depth (the stack) and with Q,
-    and MIS costs more than NAIVE."""
+    """A frame splits only where lanes x dispatch_bytes_per_lane passes half
+    of the device's memory (here the host's): a 1920x1080 terrain frame is
+    one dispatch on the CPU; the bytes per lane grow with the top tree's
+    depth (the stack) and with WF_Q, and MIS costs more than NAIVE."""
 
     tsc, _ = tsyn.build_scene_terrain(n_tris=2048)
     ts = tl.build_scene_torch(tsc, device="cpu")
@@ -416,7 +413,7 @@ def test_default_self_bound_is_the_working_set(monkeypatch):
     monkeypatch.setitem(ts.statics, "top_depth", ts.top_depth + 4)
     deeper = trenderer.dispatch_bytes_per_lane(ts, baked, naive)
     assert deeper == base + 2 * 4 * 7 * 4  # two int32 stack copies, 7 rows a level
-    monkeypatch.setenv("LUPIN_WF_Q_DIV", "16")
+    monkeypatch.setattr(tint, "WF_Q", 16)
     assert trenderer.dispatch_bytes_per_lane(ts, baked, naive) > deeper
     assert trenderer.dispatch_bytes_per_lane(
         ts, baked, int(tl.PathtraceType.MIS)) > base
