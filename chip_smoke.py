@@ -261,7 +261,8 @@ def plain_ms(fn):
 
 
 KERNEL_GROUPS = (("B4", "packet_kernel"), ("B5", "top_kernel"),
-                 ("B6", "pair_hit_kernel"), ("B7", "attr_kernel"))
+                 ("B6", "pair_hit_kernel"), ("B7", "attr_kernel"),
+                 ("walk", "lupin_walk_kernel"))
 
 
 def device_profile(fn):
@@ -489,7 +490,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     from lupinpathtracer_tpu_torch.core import rng as rng_mod
     from lupinpathtracer_tpu_torch.core.vec3 import V3
     from lupinpathtracer_tpu_torch.io import synthetic
-    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet, walk
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.render.renderer import (
@@ -604,6 +605,25 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
          pair_slots=int(skey.shape[0]),
          **pair_live_shares(blk, lo, hi, n_items, int(skey.shape[0])), **res_b6)
 
+    # The BVH walk on the same bounce batch (its route since the walk),
+    # beside the sort wavefront's rounds on it.
+    def on_wf():
+        return on_wavefront(lambda: intersect.closest_hit_wavefront(
+            ts, o, d, eps, W=W, coherent=False))
+
+    t_wk, k_wk, by_wk = kernel_ms(lambda: walk.walk(ts, o, d, eps, W),
+                                  "lupin_walk_kernel", 5)
+    r0 = intersect.ROUNDS["wavefront"]
+    wf_ms, h_wf = cuda_ms(on_wf, 2)
+    prof_wf = device_profile(on_wf)
+    emit("walk_vs_wavefront", scene=f"terrain{n_tris}", rays=B, walk_ms=t_wk,
+         walk_timed_by=by_wk, wavefront_wall_ms=wf_ms,
+         wavefront_rounds=(intersect.ROUNDS["wavefront"] - r0) / 4,
+         wavefront_device_busy_ms=prof_wf["device_busy_ms"],
+         wavefront_device_ms_by_group=prof_wf["device_ms_by_group"],
+         hits=int((k_wk[0] < F32_MAX).sum()), t_equal=bool(torch.equal(k_wk[0], h_wf.dst)),
+         t_diff_lanes=int((k_wk[0] != h_wf.dst).sum()), card=smi)
+
     # B7 on the batch's winners, sorted as wavefront_fetch_attrs sorts them.
     h = intersect.closest_hit_wavefront(ts, o, d, eps, W=W, coherent=False)
     args7, kw7, _, _ = intersect._attr_fetch_args(ts, h)
@@ -619,7 +639,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
 
     # -- 9. the BVH main path --------------------------------------------------
     counters = (bvh.LAUNCHES, packet.LAUNCHES, dk.LAUNCHES, mega.LAUNCHES,
-                intersect.HOST_SYNCS)
+                walk.LAUNCHES, intersect.HOST_SYNCS)
     baked = lt.BakedPathtraceParams(max_bounces=bounces, samples_per_pixel=spp)
     t0 = time.perf_counter()
     lt.render_progressive(ts, desc, baked, width, height, 1, device=dev)
@@ -631,7 +651,7 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     img = lt.render_progressive(ts, desc, baked, width, height, timed_accums,
                                 device=dev, stats=stats)
     wall = time.perf_counter() - t0
-    launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+    launches = {**packet.LAUNCHES, **bvh.LAUNCHES, **walk.LAUNCHES}
     syncs = intersect.HOST_SYNCS["wavefront"]
     dense_launches = {**dk.LAUNCHES, **mega.LAUNCHES}
     emit("main_path_bvh", scene=f"terrain{n_tris}", width=width, height=height,
@@ -643,8 +663,8 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
          wavefront_host_syncs_per_accumulation=syncs / timed_accums,
          dense_launches=dense_launches, image_mean=float(img.mean()),
          image_finite=bool(np.isfinite(img).all()), card=smi)
-    assert all(launches[k] > 0 for k in (
-        "packet_traverse", "top_traverse", "pair_intersect", "attr_fetch")), launches
+    assert all(launches[k] > 0 for k in ("packet_traverse", "walk", "attr_fetch")), launches
+    assert launches["top_traverse"] == launches["pair_intersect"] == 0, launches
     assert not any(dense_launches.values()), dense_launches
     assert np.isfinite(img).all() and img.mean() > 0
 
@@ -656,10 +676,10 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
     emit("main_path_bvh_profile", accumulations=1, card=smi,
          device_busy_share_of_timed_wall=prof["device_busy_ms"] * 1e-3
          * timed_accums / wall, **prof)
-    b5_replay = emit_b5_launches(ts, desc, width, height, REPLAY_SPP, bounces,
-                                 f"terrain{n_tris}", smi)
-    emit_b6_launches(ts, desc, width, height, REPLAY_SPP, bounces,
-                     f"terrain{n_tris}", smi)
+    b5_replay = on_wavefront(lambda: emit_b5_launches(
+        ts, desc, width, height, REPLAY_SPP, bounces, f"terrain{n_tris}", smi))
+    on_wavefront(lambda: emit_b6_launches(ts, desc, width, height, REPLAY_SPP,
+                                          bounces, f"terrain{n_tris}", smi))
     b7_replay = emit_b7_launches(ts, desc, width, height, REPLAY_SPP, bounces,
                                  f"terrain{n_tris}", smi)
 
@@ -673,11 +693,11 @@ def bvh_phases(dev, smi, scene_c, cams_c, n_tris=TERRAIN_TRIS, width=512,
         32, 32, 8, device=dev)
     within = float((np.abs(img_g - golden) <= 2e-3).mean())
     mean_rel = abs(float(img_g.mean()) - float(golden.mean())) / float(golden.mean())
-    routed = {**packet.LAUNCHES, **bvh.LAUNCHES, **mega.LAUNCHES}
+    routed = {**packet.LAUNCHES, **bvh.LAUNCHES, **mega.LAUNCHES, **walk.LAUNCHES}
     emit("golden_bvh_route", atol=2e-3, pixels_within_atol=within,
          mean_rel_diff=mean_rel, max_abs_diff=float(np.abs(img_g - golden).max()),
          launches=routed)
-    assert bvh.LAUNCHES["pair_intersect"] > 0 and bvh.LAUNCHES["attr_fetch"] > 0
+    assert walk.LAUNCHES["walk"] > 0 and bvh.LAUNCHES["attr_fetch"] > 0
     assert mega.LAUNCHES["mega_pathtrace_spp"] == 0
     assert within >= 0.99 and mean_rel <= 0.01
 
@@ -924,6 +944,127 @@ def shade_phase(dev, smi, width=512, height=512, spp=5, bounces=8):
                  launches, res["acc_max_abs_err"], mean_ms, p_ms,
                  bound_ms(0.0, B * SHADE_LANE_BYTES), timed_by,
                  launches_in="one accumulation")
+
+
+def on_wavefront(fn):
+    """fn() with every batch that the BVH walk would take sent to the sort
+    wavefront (B5, B6) instead, the route a single-level scene's bounce
+    batches took before the walk: the B5 and B6 replays at a single-level
+    scene's shapes run under it."""
+
+    from lupinpathtracer_tpu_torch.kernels import intersect
+
+    real = intersect._route
+
+    def route(scene, x, coherent, with_counts=False):
+        r = real(scene, x, coherent, with_counts)
+        return "wavefront" if r == "walk" else r
+
+    return with_attr(intersect, "_route", route, fn)
+
+
+def bvh_route_kernels(ts):
+    """The wrappers a BVH main path launches: B4 and B7, with the walk on a
+    single-level scene's bounce batches and B5/B6 on a two-level one's."""
+
+    return ("packet_traverse", "attr_fetch") + (
+        ("top_traverse", "pair_intersect") if ts.two_level else ("walk",))
+
+
+def walk_bound(work, lanes):
+    """The walk's bound for one launch (walk_plain's counts): two slab
+    tests a step and 81 operations a triangle tested; bytes: the rays in
+    (24 B and the active byte), the records out (20 B), and the distinct
+    nodes (32 B) and groups of four triangles (640 B) read, each once."""
+
+    return bound_ms(work["steps"] * 2 * SLAB_OPS + work["tri_tests"] * PAIR_OPS,
+                    lanes * (25 + 20) + work["nodes_read"] * 32
+                    + work["groups_read"] * 640)
+
+
+def walk_phase(dev, smi):
+    """The BVH walk (kernels/walk.py, csrc/walk.cu) at the spd_tetra.spd512
+    cell's shapes: SPD tetra at the configuration's size factor 10, 512x512
+    x 5 spp, 8 bounces, seed 12345, through lupin_bench's loop. Every walk
+    launch of one accumulation (the bounce batches) recorded and timed
+    (tools/prof_pair.kernel_ms_each), the first held to walk_plain bit for
+    bit with its work and bound; one accumulation's wall on the walk and
+    with the walk's batches on the sort wavefront; the first samples'
+    camera batch through B4 (its route) and through the walk, measured
+    only. Returns the kernels line's entries."""
+
+    from lupin_bench import cells, port, scenes
+    from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
+    from lupinpathtracer_tpu_torch.kernels import packet, walk
+    from lupinpathtracer_tpu_torch.tools import prof_pair, replay
+
+    with open(os.path.join(ROOT, "lupin_bench", "configs", "spd_tetra.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(ROOT, "lupin_bench", "traffic", "spd512.json")) as f:
+        traffic = json.load(f)
+    d = scenes.generate(cfg, 12345)
+    ts, build_s = port.build(d, False, dev)
+    loop = cells.loop_class("progressive")(ts, d, traffic, 12345, dev)
+    loop.begin()
+
+    def accum(i):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.step(i)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    accum(0)
+    walk_s = accum(1)
+    wf_s = on_wavefront(lambda: accum(2))
+    launches0 = walk.LAUNCHES["walk"]
+    rec = replay.record_launches(walk, "walk", lambda: loop.step(3), share=(0, 4))
+    assert len(rec) == walk.LAUNCHES["walk"] - launches0 > 0
+    cam = replay.record_launches(packet, "packet_traverse", lambda: loop.step(4),
+                                 share=(0, 4))[0]
+    torch.cuda.synchronize()
+
+    timed = prof_pair.kernel_ms_each(
+        [lambda a=a, k=k: walk.walk(*a, **k) for a, k in rec], "lupin_walk_kernel", 3)
+    a, k = rec[0]
+    out = walk.walk(*a, **k)
+    work: dict = {}
+    p_ms, p = plain_ms(lambda: walk.walk_plain(ts.bvh_nodes, a[4], a[1], a[2], a[3],
+                                               active=k.get("active"), counts=work))
+    assert_equal(out, p, "walk")
+    lanes = a[1].x.shape[0]
+    live = [int(kk["active"].sum()) if kk.get("active") is not None else lanes
+            for _, kk in rec]
+    bnd = walk_bound(work, lanes)
+    ms = [m for m, _ in timed]
+    by = "device_records" if all(b == "device_records" for _, b in timed) else "events"
+    emit("walk_spd512", scene="spd_tetra SF 10", triangles=ts.num_world_tris,
+         nodes=int(ts.bvh_nodes.shape[0]), bvh_depth=ts.bvh_depth, build_s=build_s,
+         accum_s_walk=walk_s, accum_s_wavefront=wf_s, launches=len(rec),
+         lanes=lanes, live_per_launch=live, ms_per_launch=[round(m, 4) for m in ms],
+         device_ms_per_accum=sum(ms), timed_by=by, first_launch_ms=ms[0],
+         first_mrays_per_s=live[0] / ms[0] / 1e3, first_work=work,
+         first_bound_ms=bnd[0], first_bound_by=bnd[1], first_plain_ms=p_ms,
+         first_bit_for_bit=True, card=smi)
+
+    # The camera batch: B4's route, and the walk on the same rays (measured
+    # only: B4 keeps the route).
+    ca, ck = cam
+    ro, rd, eps, W = ca[1], ca[2], ca[3], ca[4]
+    b4_ms, b4, b4_by = kernel_ms(lambda: packet.packet_traverse(*ca, **ck),
+                                 "packet_kernel", 5)
+    w_ms, wk, w_by = kernel_ms(lambda: walk.walk(ts, ro, rd, eps, W,
+                                                 active=ck.get("active")),
+                               "lupin_walk_kernel", 5)
+    hit = wk[0] < dk.F32_MAX
+    emit("walk_camera_batch", scene="spd_tetra SF 10", rays=ro.x.shape[0],
+         b4_ms=b4_ms, b4_timed_by=b4_by, walk_ms=w_ms, walk_timed_by=w_by,
+         walk_over_b4=w_ms / b4_ms, hits=int(hit.sum()),
+         t_equal_share=float((wk[0] == b4[0]).float().mean()), card=smi)
+    return [entry("Walk (spd512, the first bounce batch)", "walk.cu",
+                  "none: the reference's bvh_custom.wgsl:195-288 walk, re-shaped by "
+                  "the JAX package into B5/B6 for the TPU", len(rec), 0.0,
+                  ms[0], p_ms, bnd, timed[0][1], launches_in="one accumulation")]
 
 
 def two_level_kernels(ts, cams, tag, dev, width, height, brute_rays):
@@ -1272,7 +1413,7 @@ def mis_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
     Returns the kernel entries."""
 
     import lupinpathtracer_tpu_torch as lt
-    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet, walk
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.tools.replay import one_accumulation
@@ -1313,9 +1454,10 @@ def mis_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
         mean_rel = abs(float(img_g.mean()) - float(golden.mean())) / float(golden.mean())
         emit("golden_mis", route=route, atol=2e-3, pixels_within_atol=within,
              mean_rel_diff=mean_rel, max_abs_diff=float(np.abs(img_g - golden).max()),
-             launches={**dk.LAUNCHES, **bvh.LAUNCHES, **mega.LAUNCHES})
+             launches={**dk.LAUNCHES, **bvh.LAUNCHES, **mega.LAUNCHES,
+                       **walk.LAUNCHES})
         assert mega.LAUNCHES["mega_pathtrace_spp"] == 0
-        assert (bvh.LAUNCHES["pair_intersect"] > 0) == (route == "bvh")
+        assert (walk.LAUNCHES["walk"] > 0) == (route == "bvh")
         assert within >= 0.99 and mean_rel <= 0.01
 
     # -- 15. MIS on the BVH main paths.
@@ -1326,7 +1468,7 @@ def mis_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
         baked = lt.BakedPathtraceParams(max_bounces=nb, samples_per_pixel=spp)
         warm_s, wall, rays, img = timed_render(ts, desc, baked, w, h, accums,
                                                counters, dev)
-        launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+        launches = {**packet.LAUNCHES, **bvh.LAUNCHES, **walk.LAUNCHES}
         dense = {**dk.LAUNCHES, **mega.LAUNCHES}
         emit("main_path_bvh_mis", scene=tag, integrator="MIS", width=w, height=h,
              bounces=nb, spp=spp, accumulations=accums, warmup_s=warm_s, wall_s=wall,
@@ -1338,8 +1480,7 @@ def mis_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
                                             **integrators.HOST_SYNCS}.items()},
              dense_launches=dense, image_mean=float(img.mean()),
              image_finite=bool(np.isfinite(img).all()), card=smi)
-        assert all(launches[k] > 0 for k in (
-            "packet_traverse", "top_traverse", "pair_intersect", "attr_fetch")), launches
+        assert all(launches[k] > 0 for k in bvh_route_kernels(ts)), launches
         assert not any(dense.values()) and np.isfinite(img).all() and img.mean() > 0
         prof = device_profile(lambda: lt.render_progressive(
             ts, desc, baked, w, h, 1, device=dev))
@@ -1354,12 +1495,14 @@ def mis_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
                   *emit_b4_launches(ts, run, tag, smi, "MIS"), launches_in=path),
             entry(f"B5 top_traverse ({tag} MIS, mean per main-path launch)", "bvh.cu",
                   B5_SITE, launches["top_traverse"],
-                  *emit_b5_launches(ts, desc, w, h, 1, nb, tag, smi, what="MIS"),
+                  *on_wavefront(lambda: emit_b5_launches(ts, desc, w, h, 1, nb, tag,
+                                                         smi, what="MIS")),
                   launches_in=path),
             entry(f"B6 pair_intersect ({tag} MIS, mean per main-path launch)",
                   "pair_intersect.cuh", B6_SITE, launches["pair_intersect"],
-                  *emit_b6_launches(ts, desc, w, h, 1, nb, tag, smi, plain=True,
-                                    what="MIS"), launches_in=path),
+                  *on_wavefront(lambda: emit_b6_launches(ts, desc, w, h, 1, nb, tag, smi,
+                                                         plain=True, what="MIS")),
+                  launches_in=path),
             entry(f"B7 attr_fetch ({tag} MIS, mean per main-path launch)", "bvh.cu",
                   B7_SITE, launches["attr_fetch"],
                   *emit_b7_launches(ts, desc, w, h, 1, nb, tag, smi, what="MIS"),
@@ -1379,7 +1522,7 @@ def aov_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
     call on CPU tensors. Returns the kernel entries."""
 
     import lupinpathtracer_tpu_torch as lt
-    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, packet, walk
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
     from lupinpathtracer_tpu_torch.render import integrators
 
@@ -1463,14 +1606,14 @@ def aov_phases(dev, smi, scene_c, cams_c, bvh_scenes, counters):
         run()
         reset(*counters)
         ms, img = dispatch_ms(run)
-        launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+        launches = {**packet.LAUNCHES, **bvh.LAUNCHES, **walk.LAUNCHES}
         emit("debug", scene="terrain2M", mode=mode, width=w, height=h, ms=ms,
              launches=launches,
              host_syncs={**intersect.HOST_SYNCS, **integrators.HOST_SYNCS},
              image_mean=float(img.mean()), card=smi)
         assert bool(torch.isfinite(img).all()) and float(img.max()) > 0
         if mode == "bounces":
-            assert launches["packet_traverse"] > 0 and launches["top_traverse"] > 0
+            assert launches["packet_traverse"] > 0 and launches["walk"] > 0
             continue
         assert launches["packet_traverse"] == 0 and launches["top_traverse"] > 0
         kernels.append(entry(
@@ -1602,7 +1745,7 @@ def files_terrain_phase(dev, smi, terrain, ts, cams, counters):
     import lupinpathtracer_tpu_torch as lt
     from lupinpathtracer_tpu_torch.apps import render_cli
     from lupinpathtracer_tpu_torch.io import exr, yocto_json
-    from lupinpathtracer_tpu_torch.kernels import bvh, packet
+    from lupinpathtracer_tpu_torch.kernels import bvh, packet, walk
     from lupinpathtracer_tpu_torch.tools import scene_files
 
     (w, h), spp, nb = API["bvh_wh"], API["bvh_spp"], API["bounces"]
@@ -1616,7 +1759,7 @@ def files_terrain_phase(dev, smi, terrain, ts, cams, counters):
     times = render_cli.main([path, "--width", str(w), "--height", str(h), "--spp",
                              str(spp), "--bounces", str(nb), "--max-radiance", "10",
                              "--accums", "2", "--out", out])
-    launches = {**packet.LAUNCHES, **bvh.LAUNCHES}
+    launches = {**packet.LAUNCHES, **bvh.LAUNCHES, **walk.LAUNCHES}
     t0 = time.perf_counter()
     loaded, lcams = yocto_json.load_scene_yoctogl_v24(path)
     parse_s = time.perf_counter() - t0
@@ -1637,8 +1780,7 @@ def files_terrain_phase(dev, smi, terrain, ts, cams, counters):
          texcoord_max_abs_diff=uv_err, exr_equal_share=equal_share,
          exr_max_diff_in_half_ulps=float((diff / ulp).max()),
          image_mean=float(got.mean()), card=smi)
-    assert all(launches[k] > 0 for k in ("packet_traverse", "top_traverse",
-                                         "pair_intersect", "attr_fetch")), launches
+    assert all(launches[k] > 0 for k in bvh_route_kernels(ts)), launches
     assert equal_share >= 0.999 and bool((diff <= ulp).all())
 
 
@@ -1832,7 +1974,7 @@ def sharding_phase(dev, smi, scene_c, cams_c, terrain_ts, terrain_cams, counters
     kernel entry for that mode."""
 
     import lupinpathtracer_tpu_torch as lt
-    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet
+    from lupinpathtracer_tpu_torch.kernels import bvh, intersect, mega, packet, walk
     from lupinpathtracer_tpu_torch.parallel import sharding
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.render.renderer import _camera_args, _pixel_batch
@@ -1861,7 +2003,7 @@ def sharding_phase(dev, smi, scene_c, cams_c, terrain_ts, terrain_cams, counters
             if tag == "cornell":
                 assert mega.LAUNCHES["mega_pathtrace_spp"] == n
             else:
-                assert bvh.LAUNCHES["pair_intersect"] > 0
+                assert walk.LAUNCHES["walk"] > 0
     desc = cornell_desc(lt, cams_c, lt.PathtraceType.STANDARD)
     reset(*counters)
     t0 = time.perf_counter()
@@ -2190,8 +2332,9 @@ def packet_bounce_phase(dev, smi, bvh_scenes, counters):
     """Phase 27, packet_bounce: both BVH main paths (512x288 x 4 spp x 8
     bounces, STANDARD; instanced100k at BOUNCE_SPP's 1 spp; 1 warm-up + 1
     timed and 1 profiled accumulation)
-    on two routes: the default (B4 on camera rays, the sort wavefront on
-    bounces) and LUPIN_FORCE_PACKET=1 (B4 on every batch). Per route the
+    on two routes: the default (B4 on camera rays; on bounces the BVH walk
+    on terrain2M, the sort wavefront on instanced100k) and
+    LUPIN_FORCE_PACKET=1 (B4 on every batch). Per route the
     wall, Mrays/s, launches, syncs, device busy share and B4's mean device
     ms per launch in the profiled accumulation; the forced image against
     the default's (the segments within 0.1%, >= 99.9% of pixels within
@@ -2396,7 +2539,7 @@ def main() -> int:
     from lupinpathtracer_tpu_torch.core import vec3 as v3
     from lupinpathtracer_tpu_torch.core.vec3 import V3
     from lupinpathtracer_tpu_torch.io import builtin
-    from lupinpathtracer_tpu_torch.kernels import cuda_build, intersect, mega
+    from lupinpathtracer_tpu_torch.kernels import cuda_build, intersect, mega, walk
     from lupinpathtracer_tpu_torch.kernels import dense_intersect as dk
     from lupinpathtracer_tpu_torch.render import integrators
     from lupinpathtracer_tpu_torch.render.renderer import (
@@ -2658,6 +2801,7 @@ def main() -> int:
 
     # -- 6b. the BVH route's shading step at the spd cell's shapes -----------
     kernels.append(shade_phase(dev, smi))
+    kernels += walk_phase(dev, smi)
 
     # -- 7-10. the BVH route -----------------------------------------------
     bvh_kernels, terrain_state, terrain_cams, terrain_cpu = bvh_phases(
@@ -2674,7 +2818,7 @@ def main() -> int:
     bvh_scenes = {"terrain2M": (terrain_state[0], terrain_cams),
                   "instanced100k": (field_state[0], field_cams)}
     counters = (dk.LAUNCHES, mega.LAUNCHES, bvh.LAUNCHES, packet.LAUNCHES,
-                intersect.HOST_SYNCS, integrators.HOST_SYNCS)
+                walk.LAUNCHES, intersect.HOST_SYNCS, integrators.HOST_SYNCS)
     api_kernels = mis_phases(dev, smi, scene, cams, bvh_scenes, counters)
     emit("mis_phases_done", total_s=time.perf_counter() - t_start)
     api_kernels += aov_phases(dev, smi, scene, cams, bvh_scenes, counters)

@@ -24,7 +24,8 @@ import time
 from .._paths import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ("dense_intersect", "mega", "packet", "bvh", "pair_variants", "shade")
+SOURCES = ("dense_intersect", "mega", "packet", "bvh", "pair_variants", "shade",
+           "walk")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",

@@ -10,14 +10,17 @@ ray_tri_dst (pathtracer.wgsl:2922-2943).
   kernel B1/B2 (kernels/dense_intersect.py).
 - Single-level BVH scenes: coherent batches (camera rays) take kernel B4
   (kernels/packet.py), which also returns the winner's interpolated
-  attributes; divergent bounce batches take the sort wavefront
-  (`closest_hit_wavefront`): rounds of B5 top traversal, a superleaf-keyed
-  sort, B6 pair intersection, an un-sort and a per-ray min, then
-  `wavefront_fetch_attrs` (a sort, B7, an un-sort). The sorts are
-  torch.sort(stable=True) on the int32 key, as XLA's stable sort in the JAX
-  package; an un-sort is a scatter by the original slot. The round loops'
-  conditions are host syncs, counted in HOST_SYNCS; the rounds are counted
-  in ROUNDS. A BVH scene's `closest_hit` or `closest_hit_attrs` call is
+  attributes. Divergent bounce batches on the card take the BVH walk
+  (kernels/walk.py: one thread per ray down the binary BVH, one launch a
+  batch); elsewhere (CPU tensors, the debug counts) they take the sort
+  wavefront (`closest_hit_wavefront`): rounds of B5 top traversal, a
+  superleaf-keyed sort, B6 pair intersection, an un-sort and a per-ray
+  min. Either is followed by `wavefront_fetch_attrs` (a sort, B7, an
+  un-sort). The sorts are torch.sort(stable=True) on the int32 key, as
+  XLA's stable sort in the JAX package; an un-sort is a scatter by the
+  original slot. The round loops' conditions are host syncs, counted in
+  HOST_SYNCS; the rounds are counted in ROUNDS, the batches by route in
+  ROUTES. A BVH scene's `closest_hit` or `closest_hit_attrs` call is
   core/trace.py's `intersect` span, each round a `wavefront.round` span.
 - Two-level (instanced) scenes keep one mesh-space soup per unique mesh and
   a top tree over every (instance x mesh superleaf) pair. They take the same
@@ -61,6 +64,7 @@ from ..core.vec3 import V3
 from . import bvh as bk
 from . import dense_intersect as dk
 from . import packet
+from . import walk
 
 F32_MAX = dk.F32_MAX
 
@@ -73,6 +77,10 @@ HOST_SYNCS = {"wavefront": 0}
 # core/trace.py's `wavefront.round` span while it records). Counted whether
 # or not spans record, like HOST_SYNCS.
 ROUNDS = {"wavefront": 0}
+
+# BVH batches by route (`_route`): B4 ("packet"), the BVH walk ("walk"),
+# the sort wavefront ("wavefront"). Counted whether or not spans record.
+ROUTES = {"walk": 0, "wavefront": 0, "packet": 0}
 
 
 @dataclass
@@ -436,6 +444,20 @@ def _use_packet(scene, coherent: bool = True) -> bool:
     return packet_eligible(scene)
 
 
+def _route(scene, x, coherent: bool, with_counts: bool = False) -> str:
+    """The route of a BVH batch whose rays lie where tensor `x` lies, from
+    the input alone: "packet" where B4 takes it (_use_packet; never with
+    the debug counts), "walk" for a bounce batch (coherent=False) of a
+    single-level scene on the card, "wavefront" otherwise (two-level
+    scenes, the debug counts, CPU tensors)."""
+
+    if not with_counts and _use_packet(scene, coherent):
+        return "packet"
+    if not (coherent or with_counts or scene.two_level) and x.is_cuda:
+        return "walk"
+    return "wavefront"
+
+
 def _wavefront_tri_matrix(scene, W=None):
     """Coefficient matrix at the repacked-soup width the superleaf kernels
     slice by superleaf id."""
@@ -456,13 +478,14 @@ def _pad(x, n, fill):
 def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
                           coherent: bool = True, with_counts: bool = False):
     """Closest hit of a BVH scene, single- or two-level
-    (intersect.py:581-747): kernel B4 for coherent batches; otherwise rounds
-    of B5 top traversal -> superleaf sort -> B6 pair intersection -> un-sort
-    -> per-ray min until every stack drains, full-batch rounds while more
-    than C = WF_TAIL_C lanes are pending (WF_Q superleaf emits a ray a
-    round), then rounds over the compacted stragglers (WF_Q_TAIL emits).
-    Inactive lanes skip traversal (a miss). No det-sign backside fixup
-    here.
+    (intersect.py:581-747), by `_route`: kernel B4 for coherent batches;
+    the BVH walk (kernels/walk.py) for a single-level scene's bounce batch
+    on the card; otherwise rounds of B5 top traversal -> superleaf sort ->
+    B6 pair intersection -> un-sort -> per-ray min until every stack
+    drains, full-batch rounds while more than C = WF_TAIL_C lanes are
+    pending (WF_Q superleaf emits a ray a round), then rounds over the
+    compacted stragglers (WF_Q_TAIL emits). Inactive lanes skip traversal
+    (a miss). No det-sign backside fixup here.
 
     `with_counts` (the debug heatmaps) skips B4 and also returns each ray's
     (n_tri, n_aabb): the triangles the pair kernel tested (its superleaf
@@ -472,11 +495,17 @@ def closest_hit_wavefront(scene, ro: V3, rd: V3, eps, W=None, active=None,
     dev = ro.x.device
     SP = scene.sl_stride
     W = _wavefront_tri_matrix(scene, W)
-    if not with_counts and _use_packet(scene, coherent):
+    route = _route(scene, ro.x, coherent, with_counts)
+    ROUTES[route] += 1
+    if route == "packet":
         t, u, v, det, tri = packet.packet_traverse(scene, ro, rd, eps, W,
                                                    active=active)
         return HitInfo(hit=t < F32_MAX, dst=t, u=u, v=v,
                        tri=tri.clamp_min(0), backside=det > 0.0)
+    if route == "walk":
+        t, u, v, det, tri = walk.walk(scene, ro, rd, eps, W, active=active)
+        return HitInfo(hit=t < F32_MAX, dst=t, u=u, v=v, tri=tri,
+                       backside=det > 0.0)
 
     pad = (-B) % WF_RAY_BLOCK
     Bp = B + pad
@@ -844,7 +873,8 @@ def closest_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None,
         return closest_hit(scene, ro, rd, eps, W=W), None
     if scene.use_bvh:
         with trace.span("intersect"):
-            if not scene.two_level and _use_packet(scene, coherent):
+            if not scene.two_level and _route(scene, ro.x, coherent) == "packet":
+                ROUTES["packet"] += 1
                 return _packet_hit_attrs(scene, ro, rd, eps, W=W, active=active)
             h = _closest_hit_bvh(scene, ro, rd, eps, W, active, coherent)
             return h, wavefront_fetch_attrs(scene, h)

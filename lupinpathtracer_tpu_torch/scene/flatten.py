@@ -1014,17 +1014,37 @@ def _to_tensor(name: str, a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)  # owned copy
 
 
+def pack_bvh_nodes(bvh_min, bvh_max, bvh_first, bvh_count) -> np.ndarray:
+    """The binary BVH as the walk kernel reads it (kernels/walk.py,
+    csrc/walk.cu): (n_nodes, 8) f32, per node 32 bytes (min.xyz, first)
+    and (max.xyz, count), the two ints' bits in the float lanes, from the
+    component-major (3, n_nodes) boxes and the per-node ints."""
+
+    first = np.asarray(bvh_first, np.int32)
+    out = np.empty((first.shape[0], 8), np.float32)
+    out[:, 0:3] = np.asarray(bvh_min, np.float32).T
+    out[:, 3] = first.view(np.float32)
+    out[:, 4:7] = np.asarray(bvh_max, np.float32).T
+    out[:, 7] = np.asarray(bvh_count, np.int32).view(np.float32)
+    return out
+
+
 def scene_from_numpy(arrays: dict, statics: dict, device) -> SceneTorch:
     """Build a SceneTorch from numpy arrays and static fields: the output of
     `flatten_numpy`, or a JAX SceneTPU carried across
     (`{f: np.asarray(getattr(tpu, f)) for f in ARRAY_FIELDS}` and
-    `{f: getattr(tpu, f) for f in STATIC_FIELDS}`)."""
+    `{f: getattr(tpu, f) for f in STATIC_FIELDS}`). A single-level scene
+    with a BVH also gets `bvh_nodes`, its node table packed for the walk
+    kernel (pack_bvh_nodes)."""
 
     device = torch.device(device)
-    return SceneTorch(
-        statics={f: statics[f] for f in STATIC_FIELDS},
-        tensors={f: _to_tensor(f, arrays[f], device) for f in ARRAY_FIELDS},
-    )
+    tensors = {f: _to_tensor(f, arrays[f], device) for f in ARRAY_FIELDS}
+    if not statics["two_level"] and statics["sl_count"] > 0:
+        tensors["bvh_nodes"] = torch.from_numpy(pack_bvh_nodes(
+            arrays["bvh_min"], arrays["bvh_max"], arrays["bvh_first"],
+            arrays["bvh_count"])).to(device)
+    return SceneTorch(statics={f: statics[f] for f in STATIC_FIELDS},
+                      tensors=tensors)
 
 
 def build_scene_torch(scene: SceneCPU, device="cuda", **kwargs) -> SceneTorch:
