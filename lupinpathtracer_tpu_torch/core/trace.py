@@ -45,7 +45,17 @@ The spans, each for what reads it (lupin_bench/metrics/):
   inside it);
 - `wavefront.round`: one round of closest_hit_wavefront's full-batch or
   straggler loop, also counted in intersect.ROUNDS whether or not spans
-  record (wavefront.rounds_per_accum).
+  record (wavefront.rounds_per_accum);
+- `fetch`: B7's fetch (intersect.wavefront_fetch_attrs: its sort, work
+  items, kernel, gathers and scatter) inside an `intersect` span, on the
+  walk and the wavefront routes (fetch.host_ms_per_accum, less the syncs
+  inside it).
+
+Counts go to a second ring while spans record: `count(name, value)` keeps
+the value with its time, where the value may be a device tensor that is
+read only when `counted(name, t0_ns, t1_ns)` sums a window, so a count
+adds no host sync to the path. `intersect.pairs`: the (ray, superleaf)
+pairs each wavefront round's B5 emitted (wavefront.pairs_per_segment).
 
 The scene build records no span: scene/flatten.py's BUILD_S holds the last
 build's seconds by phase (scene.bvh_build_s).
@@ -89,6 +99,7 @@ class _Off:
 
 
 _ring: deque = deque(maxlen=RING)
+_counts: deque = deque(maxlen=RING)  # (name, time_ns, value)
 _ids = itertools.count(1)
 _open: list = []  # (span id, dispatch id) of the open spans, innermost last
 _recording = 0
@@ -152,3 +163,19 @@ def spans(t0_ns: int, t1_ns: int) -> list:
     order they ended."""
 
     return [s for s in list(_ring) if s.start_ns >= t0_ns and s.end_ns <= t1_ns]
+
+
+def count(name: str, value):
+    """Keeps `value` (an int or a one-element tensor, on any device; not
+    read here) under `name` with the time while recording; else nothing."""
+
+    if _recording or _profiling():
+        _counts.append((name, time.time_ns(), value))
+
+
+def counted(name: str, t0_ns: int, t1_ns: int):
+    """The sum of the `name` counts kept inside [t0_ns, t1_ns] (reading a
+    device value syncs), or None where none was kept."""
+
+    vals = [v for n, t, v in list(_counts) if n == name and t0_ns <= t <= t1_ns]
+    return sum(int(v) for v in vals) if vals else None

@@ -19,9 +19,10 @@ ray_tri_dst (pathtracer.wgsl:2922-2943).
   un-sort). The sorts are torch.sort(stable=True) on the int32 key, as
   XLA's stable sort in the JAX package; an un-sort is a scatter by the
   original slot. The round loops' conditions are host syncs, counted in
-  HOST_SYNCS; the rounds are counted in ROUNDS, the batches by route in
-  ROUTES. A BVH scene's `closest_hit` or `closest_hit_attrs` call is
-  core/trace.py's `intersect` span, each round a `wavefront.round` span.
+  HOST_SYNCS; the rounds are counted in ROUNDS, B5's pairs in PAIRS, the
+  batches by route in ROUTES. A BVH scene's `closest_hit` or
+  `closest_hit_attrs` call is core/trace.py's `intersect` span, each round
+  a `wavefront.round` span, B7's fetch inside it a `fetch` span.
 - Two-level (instanced) scenes keep one mesh-space soup per unique mesh and
   a top tree over every (instance x mesh superleaf) pair. They take the same
   wavefront: B4 on coherent batches (one mode: each leaf's gsl_meta row,
@@ -81,6 +82,13 @@ ROUNDS = {"wavefront": 0}
 # BVH batches by route (`_route`): B4 ("packet"), the BVH walk ("walk"),
 # the sort wavefront ("wavefront"). Counted whether or not spans record.
 ROUTES = {"walk": 0, "wavefront": 0, "packet": 0}
+
+# (ray, superleaf) pairs B5 emitted in the wavefront's rounds, summed on the
+# rounds' device with no host sync: a one-element int64 tensor once a round
+# has run (int(PAIRS["wavefront"]) reads it). Counted whether or not spans
+# record; while they record, each round's count also goes to core/trace.py's
+# count ring as `intersect.pairs`.
+PAIRS = {"wavefront": 0}
 
 
 @dataclass
@@ -663,6 +671,17 @@ def _wf_pairs(scene, tab, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     return args, kw, skey, order, n_real, stack, sp, cnt, aabb
 
 
+def _count_pairs(n_real):
+    """Adds a round's pairs (n_real, a one-element device tensor) to PAIRS
+    on their device; where the sum lies on another device it moves once."""
+
+    p = PAIRS["wavefront"]
+    if not (torch.is_tensor(p) and p.device == n_real.device):
+        p = torch.tensor([int(p)], dtype=torch.int64, device=n_real.device)
+    PAIRS["wavefront"] = p + n_real
+    trace.count("intersect.pairs", n_real)
+
+
 def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     """One wavefront round over Bp lanes (intersect.py:994-1103): B5 top
     traversal -> group the (Q, Bp) emits by superleaf (stable sort) -> B6 ->
@@ -677,6 +696,7 @@ def _wf_round(scene, W, tab, eps, rop: V3, rdp: V3, c: dict, *, S, PB, Q):
     QB = Q * Bp
     args, kw, skey, order, n_real, stack, sp, cnt, aabb = _wf_pairs(
         scene, tab, rop, rdp, c, S=S, PB=PB, Q=Q)
+    _count_pairs(n_real)
     t, u, v, det, ltri = bk.pair_intersect(*args, W, eps, **kw)
     t = torch.where(torch.arange(QB, device=t.device) < n_real, t, F32_MAX)
     gtri = ltri + skey.clamp(max=n_sl - 1) * SP
@@ -877,7 +897,8 @@ def closest_hit_attrs(scene, ro: V3, rd: V3, eps, W=None, active=None,
                 ROUTES["packet"] += 1
                 return _packet_hit_attrs(scene, ro, rd, eps, W=W, active=active)
             h = _closest_hit_bvh(scene, ro, rd, eps, W, active, coherent)
-            return h, wavefront_fetch_attrs(scene, h)
+            with trace.span("fetch"):
+                return h, wavefront_fetch_attrs(scene, h)
     if W is None:
         W = scene_tri_matrix(scene)
     t, u, v, det, idx, attr = dk.dense_closest_hit_attrs(

@@ -7,7 +7,9 @@ readers on synthetic spans and records, with the clock check; the BVH
 route's `bounce`, `shade`, `intersect` and `wavefront.round` spans on the
 SPD tetra scene at size factor 5, intersect.ROUNDS, scene/flatten.py's
 BUILD_S, and the BVH route's readers on a recorded window and on a Cornell
-one.
+one; B7's `fetch` span inside `intersect`, intersect.PAIRS and the count
+ring on a small two-level batch, and their readers on the SPD balls scene's
+window.
 The `gpu` test (skips without a card) checks that the spans share the
 device records' clock under profile(activities=[CUDA]), as the benchmark's
 traced runs profile. Imports no JAX:
@@ -500,3 +502,158 @@ def test_build_phases_restart_with_each_build():
     assert all(v >= 0 for v in small.values())
     assert sum(small.values()) <= wall
     assert small["bvh"] + small["superleaf"] < big["bvh"] + big["superleaf"]
+
+
+# ------------------------------------------- B7's fetch span, B5's pairs
+
+FETCH_READERS = ("fetch.host_ms_per_accum", "wavefront.pairs_per_segment")
+
+
+def _balls_scene(sf=2, subdivisions=1):
+    cfg = dict(scene=dict(generator="spd_balls", two_level=True,
+                          args=dict(size_factor=sf, subdivisions=subdivisions)))
+    d = scenes.generate(cfg, 3)
+    return d, port.build(d, True, "cpu")[0]
+
+
+def _balls_window(n=2, record=True):
+    """n accumulations of the SPD balls scene at size factor 2 (91
+    instanced spheres of 80 triangles, two-level) at 24x16 and 2 spp,
+    recorded unless `record` is False: (the progressive loop's record of a
+    traced window, its spans, the pairs intersect.PAIRS counted)."""
+
+    d, ts = _balls_scene()
+    traffic = dict(width=24, height=16, spp=2, accumulations=100,
+                   render=dict(integrator="STANDARD", max_bounces=8,
+                               max_radiance=10.0, ray_epsilon=0.001))
+    loop = cells.loop_class("progressive")(ts, d, traffic, 77, "cpu")
+    loop.begin()
+    p0 = int(intersect.PAIRS["wavefront"])
+    t0 = time.time_ns()
+    with trace.recording() if record else contextlib.nullcontext():
+        for i in range(n):
+            loop.step(i)
+    t1 = time.time_ns()
+    tr = dict(events=[], units=n, wall_s=(t1 - t0) * 1e-9, t0_ns=t0, t1_ns=t1,
+              spans=[])
+    rec = dict(loop="progressive", setup=dict(scene_build_s=0.0),
+               window=dict(peak_above_bytes=0, unit_rays=list(loop.unit_rays)),
+               trace=tr)
+    return rec, trace.spans(t0, t1), int(intersect.PAIRS["wavefront"]) - p0
+
+
+@pytest.mark.parametrize("scene", ["spd_balls", "spd_tetra"])
+def test_fetch_spans_nest_inside_intersect(scene):
+    """B7's fetch is one `fetch` span inside its `intersect` span, carrying
+    its dispatch's id: every intersect of the two-level scene (camera and
+    bounce batches alike), every bounce batch's of the single-level one
+    (its camera batches take B4, which fetches in the kernel)."""
+
+    got = (_balls_window() if scene == "spd_balls" else _spd_window())[1]
+    by_id = {s.span_id: s for s in got}
+    fetch = [s for s in got if s.name == "fetch"]
+    inter = [s for s in got if s.name == "intersect"]
+    assert fetch
+    for s in fetch:
+        parent = by_id[s.parent_id]
+        assert parent.name == "intersect"
+        assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+        assert s.dispatch_id == parent.dispatch_id is not None
+    if scene == "spd_balls":
+        assert len(fetch) == len(inter)
+    else:
+        bounces = sum(s.name == "bounce" for s in got)
+        assert len(fetch) == len(inter) - 2 == bounces
+
+
+def test_pairs_count_a_two_level_batchs_pairs(monkeypatch):
+    """intersect.PAIRS adds, round by round, the (ray, superleaf) pairs B5
+    emitted (the non-empty slots of its output) on a small two-level bounce
+    batch cut into several rounds, recording or not; the count ring keeps them only while
+    recording."""
+
+    _, ts = _balls_scene()
+    g = torch.Generator().manual_seed(4)
+    B = 3000
+    ro = intersect.V3(*(torch.rand(B, generator=g) * 2.4 - 1.2 for _ in range(2)),
+                      torch.full((B,), 1.5))
+    d = torch.randn(B, 3, generator=g)
+    d[:, 2] = -d[:, 2].abs() - 0.3
+    d = d / d.norm(dim=1, keepdim=True)
+    rd = intersect.V3(d[:, 0], d[:, 1], d[:, 2])
+    emitted = []
+    orig = intersect.bk.top_traverse
+
+    def top_traverse(*a, **kw):
+        out = orig(*a, **kw)
+        emitted.append(int((out[0] >= 0).sum()))
+        return out
+
+    monkeypatch.setattr(intersect.bk, "top_traverse", top_traverse)
+    monkeypatch.setattr(intersect, "WF_Q", 1)  # several rounds
+    monkeypatch.setattr(intersect, "WF_Q_TAIL", 2)
+    monkeypatch.setitem(intersect.PAIRS, "wavefront", 0)
+    t0 = time.time_ns()
+    h = intersect.closest_hit(ts, ro, rd, 1e-3, coherent=False)
+    t1 = time.time_ns()
+    assert bool(h.hit.any()) and len(emitted) > 1
+    assert int(intersect.PAIRS["wavefront"]) == sum(emitted) > B
+    assert intersect.PAIRS["wavefront"].dtype == torch.int64
+    assert trace.counted("intersect.pairs", t0, t1) is None
+    emitted.clear()
+    t0 = time.time_ns()
+    with trace.recording():
+        h2 = intersect.closest_hit(ts, ro, rd, 1e-3, coherent=False)
+    t1 = time.time_ns()
+    assert torch.equal(h2.dst, h.dst)
+    assert trace.counted("intersect.pairs", t0, t1) == sum(emitted)
+    assert int(intersect.PAIRS["wavefront"]) == 2 * sum(emitted)
+
+
+def test_fetch_readers_arithmetic():
+    """On the balls window: fetch.host_ms_per_accum from the `fetch` spans
+    less the syncs inside them; wavefront.pairs_per_segment the window's
+    pairs over its accumulations' segments, the same count whether or not
+    spans record."""
+
+    rec, got, pairs = _balls_window()
+    read = {n: cells.reader(n)(rec) for n in FETCH_READERS}
+    by_id = {s.span_id: s for s in got}
+
+    def under_fetch(s):
+        p = by_id.get(s.parent_id)
+        while p is not None and p.name != "fetch":
+            p = by_id.get(p.parent_id)
+        return p is not None
+
+    own = sum(s.end_ns - s.start_ns for s in got if s.name == "fetch")
+    wait = sum(s.end_ns - s.start_ns for s in got
+               if s.name.startswith("sync.") and under_fetch(s))
+    assert read["fetch.host_ms_per_accum"] == pytest.approx((own - wait) / 1e6 / 2)
+    rays = rec["window"]["unit_rays"]
+    assert pairs > sum(rays) > 0
+    assert read["wavefront.pairs_per_segment"] == pytest.approx(pairs / sum(rays))
+    _, off, off_pairs = _balls_window(record=False)
+    assert off == [] and off_pairs == pairs
+
+
+@pytest.mark.parametrize("name", FETCH_READERS)
+def test_fetch_readers_none_where_nothing_is_read(monkeypatch, name):
+    """None on a Cornell window (no `fetch` span, no wavefront round), on
+    an untraced run, on another loop, on a window the port recorded nothing
+    in, and from a port without the count ring."""
+
+    read = cells.reader(name)
+    rec, _, _ = _balls_window(n=1)
+    assert isinstance(read(rec), float) and read(rec) > 0
+    assert read(dict(rec, trace=None)) is None
+    assert read(dict(rec, loop="fly")) is None
+    late = dict(rec["trace"], t0_ns=rec["trace"]["t1_ns"] + 1,
+                t1_ns=rec["trace"]["t1_ns"] + 10**9)
+    assert read(dict(rec, trace=late)) is None
+    syn = _synthetic(monkeypatch)
+    syn["window"]["unit_rays"] = [1000, 1000]
+    assert read(syn) is None
+    monkeypatch.delattr(trace, "counted")
+    if name == "wavefront.pairs_per_segment":
+        assert read(rec) is None
